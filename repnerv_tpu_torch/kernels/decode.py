@@ -1,0 +1,234 @@
+"""Fused decode stage: conv3x3 + bias + PixelShuffle + activation (+ 1x1 head
++ squash), the port of ``repnerv_tpu/pallas_kernels/decode.py``.
+
+On a CUDA tensor, ``decode_stage`` launches the hand-written Hopper kernel in
+``csrc/decode.cu`` and nothing else: a launch that fails raises.  On a CPU
+tensor it runs the plain PyTorch version, ``decode_stage_reference``, which
+the tests also hold the kernel and the JAX kernel against.
+
+The weights go into the kernel's layout once (``pack_weights``): an
+implicit-GEMM operand [9*Cin, Cout] in the compute dtype whose columns are
+in shuffle-major order, so one sub-pixel's C channels are contiguous and
+pixel shuffle becomes the store's index arithmetic.  ``fused_conv_ps_act``
+keeps the JAX function's signature and layouts (x NHWC, w HWIO in
+PixelShuffle channel order) and packs on every call.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+from dataclasses import dataclass
+from typing import Iterator, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.layers import activation
+from .build import load_library
+
+# kernel launches since the count was last set to 0 (chip_smoke.py reads it)
+LAUNCHES = 0
+
+# activation name -> the code csrc/decode.cu's apply_act switches on
+ACT_CODES = {
+    "relu": 0,
+    "leaky": 1,
+    "leaky01": 2,
+    "relu6": 3,
+    "gelu": 4,
+    "sin": 5,
+    "swish": 6,
+    "softplus": 7,
+    "hardswish": 8,
+}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT32_MAX = 2**31 - 1
+
+
+def shuffle_weight_permutation(cout: int, stride: int) -> torch.Tensor:
+    """perm such that w[..., perm] reorders PyTorch pixel-shuffle channel
+    order (c*s*s + i*s + j) into shuffle-major order ((i*s + j)*C + c)."""
+    s = stride
+    c = cout // (s * s)
+    idx = torch.arange(cout)
+    return (idx % c) * s * s + idx // c
+
+
+@dataclass(frozen=True)
+class PackedStage:
+    """One decode stage's weights in the kernel's layout."""
+
+    w: torch.Tensor  # [9*Cin, Cout] compute dtype; rows (dy, dx, ci), columns shuffle-major
+    b: torch.Tensor  # [Cout] f32, shuffle-major
+    stride: int
+    head_w: Optional[torch.Tensor] = None  # [C, c_final] f32
+    head_b: Optional[torch.Tensor] = None  # [c_final] f32
+
+    @property
+    def cin(self) -> int:
+        return self.w.shape[0] // 9
+
+    @property
+    def c(self) -> int:
+        return self.w.shape[1] // (self.stride * self.stride)
+
+
+def pack_weights(
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    stride: int,
+    compute_dtype: torch.dtype,
+    *,
+    head_w: Optional[torch.Tensor] = None,
+    head_b: Optional[torch.Tensor] = None,
+) -> PackedStage:
+    """HWIO conv weight [3, 3, Cin, Cout] (PixelShuffle channel order), bias
+    [Cout] and optional HWIO head [1, 1, C, c_final] -> ``PackedStage``."""
+    kh, kw, cin, cout = w.shape
+    if (kh, kw) != (3, 3) or cout % (stride * stride):
+        raise ValueError(f"need a 3x3 kernel with Cout divisible by s^2, got {tuple(w.shape)}")
+    perm = shuffle_weight_permutation(cout, stride).to(w.device)
+    w2 = w[..., perm].reshape(9 * cin, cout).to(compute_dtype).contiguous()
+    if b is None:
+        b = torch.zeros(cout, device=w.device)
+    b2 = b[perm].to(torch.float32).contiguous()
+    hw = hb = None
+    if head_w is not None:
+        hw = head_w[0, 0].to(torch.float32).contiguous()
+        hb = (
+            head_b.to(torch.float32)
+            if head_b is not None
+            else torch.zeros(hw.shape[1], device=w.device)
+        ).contiguous()
+    return PackedStage(w2, b2, stride, hw, hb)
+
+
+@contextlib.contextmanager
+def exact_f32() -> Iterator[None]:
+    """Full-f32 cuDNN convs and matmuls (no TF32) for the duration."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def decode_stage_reference(
+    x: torch.Tensor, p: PackedStage, act: str = "swish", out_squash: str = "tanh"
+) -> torch.Tensor:
+    """The plain PyTorch version, with the kernel's cast points: inputs in
+    the compute dtype, then f32 conv, bias, activation, head and squash; the
+    output in the compute dtype, or f32 with a head."""
+    cd = p.w.dtype
+    s, c = p.stride, p.c
+    bsz, h, w, cin = x.shape
+    wk = p.w.float().reshape(3, 3, cin, -1).permute(3, 2, 0, 1)  # OIHW, shuffle-major O
+    with exact_f32():
+        acc = F.conv2d(x.to(cd).float().permute(0, 3, 1, 2), wk, padding=1)
+        acc = activation(acc.permute(0, 2, 3, 1) + p.b, act)  # [B, H, W, s*s*C]
+        # shuffle-major pixel shuffle: channel (i*s + j)*C + c -> (h*s+i, w*s+j, c)
+        y = acc.reshape(bsz, h, w, s, s, c).permute(0, 1, 3, 2, 4, 5)
+        y = y.reshape(bsz, h * s, w * s, c)
+        if p.head_w is None:
+            return y.to(cd)
+        rgb = torch.matmul(y, p.head_w) + p.head_b
+    if out_squash == "sigmoid":
+        return torch.sigmoid(rgb)
+    return (torch.tanh(rgb) + 1.0) * 0.5
+
+
+def decode_stage(
+    x: torch.Tensor, p: PackedStage, act: str = "swish", out_squash: str = "tanh"
+) -> torch.Tensor:
+    """Launch the kernel on a CUDA tensor; run the plain version on a CPU one."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return decode_stage_reference(x, p, act, out_squash)
+    if x.device.type != "cuda":
+        raise ValueError(f"decode_stage runs on cuda or cpu tensors, not {x.device}")
+    bsz, h, w, cin = x.shape
+    s, c = p.stride, p.c
+    c_final = 0 if p.head_w is None else p.head_w.shape[1]
+    tensors = [x, p.w, p.b] + ([p.head_w, p.head_b] if c_final else [])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("decode_stage: x and the packed weights must share a device")
+    if x.dtype != p.w.dtype or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"decode_stage: x is {x.dtype}, weights {p.w.dtype}; need f32 or bf16")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode_stage: x (NHWC) and the packed weights must be contiguous")
+    if cin != p.cin or s not in (1, 2, 3, 4, 5) or not 0 <= c_final <= 16:
+        raise ValueError(
+            f"decode_stage: x {tuple(x.shape)} vs weights {tuple(p.w.shape)}, stride {s}, "
+            f"head width {c_final}"
+        )
+    if act not in ACT_CODES or out_squash not in ("tanh", "sigmoid"):
+        raise ValueError(f"decode_stage: act {act!r}, squash {out_squash!r}")
+    if h >= 2**14 or w >= 2**14:
+        raise ValueError("decode_stage: H and W must be below 16384")
+    out_dtype = torch.float32 if c_final else x.dtype
+    out = torch.empty(bsz, h * s, w * s, c_final or c, device=x.device, dtype=out_dtype)
+    if max(x.numel(), p.w.numel(), out.numel()) > _INT32_MAX:
+        raise ValueError("decode_stage: tensors must hold fewer than 2**31 elements")
+    if out.numel() == 0:
+        return out
+
+    lib = load_library()  # builds csrc/*.cu on first use
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(x.device):  # the runtime launches on the current device
+        err = lib.repnerv_fused_conv_ps_act(
+            _DTYPE_CODES[x.dtype],
+            ptr(x.data_ptr()),
+            ptr(p.w.data_ptr()),
+            ptr(p.b.data_ptr()),
+            ptr(p.head_w.data_ptr() if c_final else None),
+            ptr(p.head_b.data_ptr() if c_final else None),
+            ptr(out.data_ptr()),
+            bsz, h, w, cin, c, s,
+            ACT_CODES[act],
+            c_final,
+            int(out_squash == "sigmoid"),
+            ptr(torch.cuda.current_stream(x.device).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_conv_ps_act kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
+
+
+def fused_conv_ps_act(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    stride: int,
+    act: str = "swish",
+    *,
+    head_w: Optional[torch.Tensor] = None,
+    head_b: Optional[torch.Tensor] = None,
+    out_squash: Optional[str] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """act(pixel_shuffle(conv3x3(x) + b)) [-> 1x1 head -> squash], the JAX
+    signature: x [B, H, W, Cin]; w [3, 3, Cin, C*s*s] in PixelShuffle channel
+    order.  Returns [B, H*s, W*s, C], or [..., c_final] f32 with a head."""
+    p = pack_weights(w, b, stride, compute_dtype, head_w=head_w, head_b=head_b)
+    return decode_stage(x.to(compute_dtype).contiguous(), p, act, out_squash or "tanh")
+
+
+def fused_conv_ps_act_reference(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    stride: int,
+    act: str = "swish",
+    *,
+    head_w: Optional[torch.Tensor] = None,
+    head_b: Optional[torch.Tensor] = None,
+    out_squash: Optional[str] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The plain version of ``fused_conv_ps_act``, on any device."""
+    p = pack_weights(w, b, stride, compute_dtype, head_w=head_w, head_b=head_b)
+    return decode_stage_reference(x, p, act, out_squash or "tanh")

@@ -1,0 +1,174 @@
+"""The port's fused decode stage (repnerv_tpu_torch/kernels/decode.py) against
+the JAX package's Pallas kernel, and the CUDA kernel against its plain
+version on the card.
+
+On the CPU the port's wrapper runs the plain PyTorch version; the JAX side
+runs the Pallas kernel in interpret mode, as tests/test_pallas.py does.
+Tolerance: atol 1e-5 in f32, what test_pallas.py holds the Pallas kernel to
+under conftest.py's "highest" matmul precision (both sides sum the same f32
+products in different orders).
+
+JAX is imported inside the parity tests so that the CUDA-only tests run
+where JAX is not installed:
+    python -m pytest --noconftest -m gpu tests/test_torch_decode_kernel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repnerv_tpu_torch.kernels import decode as dk
+
+ACTS = list(dk.ACT_CODES)
+
+
+def _inputs(B=2, H=8, W=16, Cin=8, C=4, s=2, head=False, seed=0):
+    rng = np.random.default_rng(seed)
+    cout = C * s * s
+    x = rng.standard_normal((B, H, W, Cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, Cin, cout)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    hw = (rng.standard_normal((1, 1, C, 3)) * 0.2).astype(np.float32) if head else None
+    hb = np.asarray([0.1, -0.2, 0.3], np.float32) if head else None
+    return x, w, b, hw, hb
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _jax_kernel(x, w, b, s, act, hw, hb, squash):
+    import jax.numpy as jnp
+
+    from repnerv_tpu.pallas_kernels.decode import fused_conv_ps_act
+
+    out = fused_conv_ps_act(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), s, act,
+        head_w=None if hw is None else jnp.asarray(hw),
+        head_b=None if hb is None else jnp.asarray(hb),
+        out_squash=squash, compute_dtype=jnp.float32, interpret=True,
+    )
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("cout,stride", [(16, 2), (12, 2), (75, 5), (4, 1), (27, 3)])
+def test_shuffle_permutation_matches_jax(cout, stride):
+    from repnerv_tpu.pallas_kernels.decode import shuffle_weight_permutation
+
+    np.testing.assert_array_equal(
+        dk.shuffle_weight_permutation(cout, stride).numpy(),
+        np.asarray(shuffle_weight_permutation(cout, stride)),
+    )
+
+
+@pytest.mark.parametrize("head", [None, "tanh", "sigmoid"])
+@pytest.mark.parametrize("stride", [1, 2, 5])
+def test_plain_stage_matches_jax_kernel(stride, head):
+    C = 4 if head else 3
+    x, w, b, hw, hb = _inputs(C=C, s=stride, head=head is not None)
+    ref = _jax_kernel(x, w, b, stride, "swish", hw, hb, head)
+    before = dk.LAUNCHES
+    out = dk.fused_conv_ps_act(
+        _t(x), _t(w), _t(b), stride, "swish", head_w=_t(hw), head_b=_t(hb),
+        out_squash=head, compute_dtype=torch.float32,
+    )
+    assert dk.LAUNCHES == before  # a CPU tensor takes the plain version, no launch
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_plain_stage_activations_match_jax_kernel(act):
+    x, w, b, _, _ = _inputs(H=4, C=3, s=2, seed=1)
+    x *= 3.0  # reach the saturating parts of relu6 / hardswish / softplus
+    ref = _jax_kernel(x, w, b, 2, act, None, None, None)
+    out = dk.fused_conv_ps_act_reference(
+        _t(x), _t(w), _t(b), 2, act, compute_dtype=torch.float32
+    )
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_plain_stage_bf16_cast_points():
+    """bf16: inputs and weights round to bf16, everything after the products
+    is f32, and only the output rounds again (the JAX kernel's cast points).
+    Against the f32 plain version on the pre-rounded inputs the only
+    difference is that last rounding: at most half a bf16 ulp, 2^-8 |ref|."""
+    x, w, b, _, _ = _inputs(C=3, s=2, seed=2)
+    xb = torch.from_numpy(x).bfloat16()
+    wb = torch.from_numpy(w).bfloat16()
+    out = dk.fused_conv_ps_act(xb, wb, _t(b), 2, "swish", compute_dtype=torch.bfloat16)
+    ref = dk.fused_conv_ps_act(
+        xb.float(), wb.float(), _t(b), 2, "swish", compute_dtype=torch.float32
+    )
+    assert out.dtype == torch.bfloat16
+    diff = (out.float() - ref).abs()
+    assert bool((diff <= 2.0**-8 * ref.abs()).all())
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    x, w, b, _, _ = _inputs(C=3, s=2)
+    p = dk.pack_weights(_t(w), _t(b), 2, torch.float32)
+    with pytest.raises(ValueError):
+        dk.pack_weights(_t(w)[:1], _t(b), 2, torch.float32)  # not 3x3
+    with pytest.raises(ValueError):
+        dk.decode_stage(torch.zeros(1, 4, 4, 8, device="meta"), p)
+
+
+# ---------------------------------------------------------------------------
+# On the card: the CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "H,W,Cin,C,s,head",
+    [
+        (8, 16, 8, 3, 1, None),
+        (8, 16, 8, 4, 2, "tanh"),
+        (8, 16, 8, 4, 2, "sigmoid"),
+        (7, 20, 26, 26, 5, None),  # Cin and C not multiples of the tiles
+        (5, 13, 96, 96, 2, None),
+        (5, 13, 96, 96, 2, "tanh"),
+        (6, 9, 16, 100, 3, "tanh"),  # C over one 96-wide chunk: the head sums two
+        (3, 11, 12, 130, 2, None),  # C over one 96-wide chunk
+    ],
+)
+def test_cuda_kernel_matches_plain(cuda, dtype, H, W, Cin, C, s, head):
+    x, w, b, hw, hb = _inputs(B=2, H=H, W=W, Cin=Cin, C=C, s=s, head=head is not None)
+    dev = lambda a: None if a is None else torch.from_numpy(a).to(cuda)  # noqa: E731
+    p = dk.pack_weights(dev(w), dev(b), s, dtype, head_w=dev(hw), head_b=dev(hb))
+    xin = dev(x).to(dtype).contiguous()
+    before = dk.LAUNCHES
+    out = dk.decode_stage(xin, p, "swish", head or "tanh")
+    ref = dk.decode_stage_reference(xin, p, "swish", head or "tanh")
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == before + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16 and head is None:
+        # both round one f32 value to bf16: at most one ulp apart
+        assert bool((diff <= 2.0**-7 * ref.float().abs() + 1e-4).all())
+    else:
+        assert diff.max().item() <= 1e-4  # f32 summation order over K = 9*Cin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_kernel_activations(cuda, act):
+    x, w, b, _, _ = _inputs(B=1, H=6, W=10, Cin=8, C=3, s=2, seed=3)
+    x *= 3.0
+    p = dk.pack_weights(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda), 2, torch.float32)
+    xin = torch.from_numpy(x).to(cuda)
+    out = dk.decode_stage(xin, p, act)
+    ref = dk.decode_stage_reference(xin, p, act)
+    assert (out - ref).abs().max().item() <= 1e-4
