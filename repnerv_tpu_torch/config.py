@@ -3,6 +3,7 @@ which is plain dataclasses and imports no JAX, shared so that an artifact's
 ``model_cfg`` means the same on both sides."""
 
 from repnerv_tpu.config import (  # noqa: F401
+    DataConfig,
     ModelConfig,
     TrainConfig,
     head_plan,

@@ -2,7 +2,15 @@
 //   out = act(pixel_shuffle(conv3x3_same(x) + b))                    (no head), or
 //   out = squash(head_1x1(act(pixel_shuffle(conv3x3_same(x) + b))))  (head)
 //
-// Replaces the TPU kernel repnerv_tpu/pallas_kernels/decode.py::fused_conv_ps_act.
+// Replaces the TPU kernels repnerv_tpu/pallas_kernels/decode.py::fused_conv_ps_act
+// and, with the pre-activation store below, the training forward
+// repnerv_tpu/pallas_kernels/train_tail.py::_fused_fwd_kernel_call.
+//
+// Training forward (repnerv_train_stage_fwd): the same kernels also store the
+// pre-activation z = pixel_shuffle(conv3x3(x) + b) [B, H*s, W*s, C] in the
+// compute dtype, at the index of the no-head shuffled store and before the
+// activation (the JAX kernel's z5 [B, H, s, W, s*C] is the same bytes).  With
+// the head, z is written too (the backward needs it) and out stays the f32 RGB.
 //
 // Layouts (as the JAX kernel's): x is NHWC [B, H, W, Cin]; w is the packed
 // implicit-GEMM operand [9*Cin, Cout] whose rows run (dy, dx, ci) and whose
@@ -37,6 +45,8 @@
 
 #include <cstdint>
 
+#include "activations.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -48,21 +58,7 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
 
-// Activation codes: the order of ACT_CODES in kernels/decode.py.
-__device__ __forceinline__ float apply_act(float v, int act) {
-  switch (act) {
-    case 0: return fmaxf(v, 0.f);                           // relu
-    case 1: return v >= 0.f ? v : 0.01f * v;                // leaky
-    case 2: return v >= 0.f ? v : 0.1f * v;                 // leaky01
-    case 3: return fminf(fmaxf(v, 0.f), 6.f);               // relu6
-    case 4: return v * 0.5f * (1.f + erff(v * 0.70710678118654752f));  // gelu (erf)
-    case 5: return sinf(v);                                 // sin
-    case 6: return v * (1.f / (1.f + expf(-v)));            // swish
-    case 7: return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v))); // softplus, unthresholded
-    case 8: return v * fminf(fmaxf(v + 3.f, 0.f), 6.f) / 6.f;  // hardswish
-  }
-  return v;
-}
+using repnerv::apply_act;
 
 // Everything a block needs to know about the problem and its own place in it.
 struct Stage {
@@ -91,13 +87,13 @@ __device__ __forceinline__ int pack_row(const Stage& st, int m) {
 // m0 + ty + ROW_STRIDE*r, chunk columns tx + 16*c): bias + activation, then
 // either the shuffled store or this chunk's share of the head, summed over
 // the 16 lanes (one half-warp, tx = 0..15) that hold the same rows.
-template <typename OutT, int TM, int TN, int ROW_STRIDE>
+template <typename OutT, typename ZT, int TM, int TN, int ROW_STRIDE>
 __device__ __forceinline__ void epilogue_chunk(const Stage& st, float (&v)[TM][TN],
                                                float (&head_acc)[TM], int m0, int ty,
                                                int tx, int c0, int col0, int si, int sj,
                                                const float* __restrict__ bias,
                                                const float* __restrict__ head_w,
-                                               OutT* __restrict__ out) {
+                                               OutT* __restrict__ out, ZT* __restrict__ z) {
   const int M = st.M();
   const bool with_head = st.c_final > 0;
 #pragma unroll
@@ -108,8 +104,14 @@ __device__ __forceinline__ void epilogue_chunk(const Stage& st, float (&v)[TM][T
     for (int c = 0; c < TN; ++c) {
       const int cc = c0 + tx + 16 * c;
       const bool ok = m < M && cc < st.C;
-      v[r][c] = ok ? apply_act(v[r][c] + bias[col0 + tx + 16 * c], st.act) : 0.f;
-      if (!with_head && ok) out[pix * st.C + cc] = from_f32<OutT>(v[r][c]);
+      if (ok) {
+        const float pre = v[r][c] + bias[col0 + tx + 16 * c];
+        if (z != nullptr) z[pix * st.C + cc] = from_f32<ZT>(pre);  // training forward only
+        v[r][c] = apply_act(pre, st.act);
+        if (!with_head) out[pix * st.C + cc] = from_f32<OutT>(v[r][c]);
+      } else {
+        v[r][c] = 0.f;
+      }
     }
     if (with_head) {
       for (int k = 0; k < st.c_final; ++k) {
@@ -159,7 +161,8 @@ template <int BN>
 __global__ void __launch_bounds__(THREADS, 2)
 kernel(const float* __restrict__ x, const float* __restrict__ w,
        const float* __restrict__ bias, const float* __restrict__ head_w,
-       const float* __restrict__ head_b, float* __restrict__ out, Stage st) {
+       const float* __restrict__ head_b, float* __restrict__ out, float* __restrict__ z,
+       Stage st) {
   constexpr int TN = BN / 16;
   constexpr int B_PER_THREAD = BK * BN / THREADS;
   static_assert(BK * BN % THREADS == 0, "B tile must split evenly");
@@ -251,8 +254,8 @@ kernel(const float* __restrict__ x, const float* __restrict__ w,
         __syncthreads();
       }
     }
-    epilogue_chunk<float, TM, TN, 16>(st, acc, head_acc, m0, ty, tx, c0, col0, si, sj,
-                                      bias, head_w, out);
+    epilogue_chunk<float, float, TM, TN, 16>(st, acc, head_acc, m0, ty, tx, c0, col0, si,
+                                             sj, bias, head_w, out, z);
   }
   store_head<float, TM, 16>(st, head_acc, m0, ty, tx, si, sj, head_b, out);
 }
@@ -305,7 +308,8 @@ template <typename OutT, int VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
        const float* __restrict__ bias, const float* __restrict__ head_w,
-       const float* __restrict__ head_b, OutT* __restrict__ out, Stage st) {
+       const float* __restrict__ head_b, OutT* __restrict__ out, bf16* __restrict__ z,
+       Stage st) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);     // STAGES x (A tile, B tile)
@@ -415,8 +419,8 @@ kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     for (int r = 0; r < TM; ++r)
 #pragma unroll
       for (int c = 0; c < TN; ++c) v[r][c] = Cs[(ty + 16 * r) * C_LD + tx + 16 * c];
-    epilogue_chunk<OutT, TM, TN, 16>(st, v, head_acc, m0, ty, tx, c0, col0, si, sj, bias,
-                                     head_w, out);
+    epilogue_chunk<OutT, bf16, TM, TN, 16>(st, v, head_acc, m0, ty, tx, c0, col0, si, sj,
+                                           bias, head_w, out, z);
     __syncthreads();  // the next chunk's copies overwrite Cs
   }
   store_head<OutT, TM, 16>(st, head_acc, m0, ty, tx, si, sj, head_b, out);
@@ -435,17 +439,17 @@ dim3 grid_for(Stage& st, int bm, int bn) {
 
 template <int BN>
 cudaError_t launch_fma(const void* x, const void* w, const float* b, const float* hw,
-                       const float* hb, void* out, Stage st, cudaStream_t stream) {
+                       const float* hb, void* out, void* z, Stage st, cudaStream_t stream) {
   const dim3 grid = grid_for(st, cuda_core::BM, BN);
   cuda_core::kernel<BN><<<grid, cuda_core::THREADS, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), b, hw, hb,
-      static_cast<float*>(out), st);
+      static_cast<float*>(out), static_cast<float*>(z), st);
   return cudaGetLastError();
 }
 
 template <typename OutT, int VEC>
 cudaError_t launch_tc(const void* x, const void* w, const float* b, const float* hw,
-                      const float* hb, void* out, Stage st, cudaStream_t stream) {
+                      const float* hb, void* out, void* z, Stage st, cudaStream_t stream) {
   auto* fn = tensor_core::kernel<OutT, VEC>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          tensor_core::SMEM_BYTES);
@@ -453,23 +457,44 @@ cudaError_t launch_tc(const void* x, const void* w, const float* b, const float*
   const dim3 grid = grid_for(st, tensor_core::BM, tensor_core::BN);
   fn<<<grid, tensor_core::THREADS, tensor_core::SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), b, hw, hb,
-      static_cast<OutT*>(out), st);
+      static_cast<OutT*>(out), static_cast<bf16*>(z), st);
   return cudaGetLastError();
 }
 
 // the widest copy that Cin, C and both pointers' alignment allow
 template <typename OutT>
 cudaError_t launch_tc_vec(const void* x, const void* w, const float* b, const float* hw,
-                          const float* hb, void* out, Stage st, cudaStream_t stream) {
+                          const float* hb, void* out, void* z, Stage st,
+                          cudaStream_t stream) {
   const auto aligned = [&](int bytes) {
     return reinterpret_cast<uintptr_t>(x) % bytes == 0 &&
            reinterpret_cast<uintptr_t>(w) % bytes == 0;
   };
   if (st.Cin % 8 == 0 && st.C % 8 == 0 && aligned(16))
-    return launch_tc<OutT, 8>(x, w, b, hw, hb, out, st, stream);
+    return launch_tc<OutT, 8>(x, w, b, hw, hb, out, z, st, stream);
   if (st.Cin % 2 == 0 && st.C % 2 == 0 && aligned(4))
-    return launch_tc<OutT, 2>(x, w, b, hw, hb, out, st, stream);
-  return launch_tc<OutT, 1>(x, w, b, hw, hb, out, st, stream);
+    return launch_tc<OutT, 2>(x, w, b, hw, hb, out, z, st, stream);
+  return launch_tc<OutT, 1>(x, w, b, hw, hb, out, z, st, stream);
+}
+
+// z == nullptr: decode (no pre-activation store); else the training forward.
+int launch_stage(int dtype, const void* x, const void* w, const float* b,
+                 const float* head_w, const float* head_b, void* out, void* z, int B,
+                 int H, int W, int Cin, int C, int s, int act, int c_final,
+                 int sigmoid_squash, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Stage stage{B, H, W, Cin, C, s, act, c_final, sigmoid_squash, 1, 1};
+  if (dtype == 0) {
+    // the smallest channel tile that holds C (the flagship's C = 96 fills one
+    // 96-wide tile); wider C walks 96-wide chunks
+    if (C <= 32) return launch_fma<32>(x, w, b, head_w, head_b, out, z, stage, st);
+    if (C <= 64) return launch_fma<64>(x, w, b, head_w, head_b, out, z, stage, st);
+    return launch_fma<96>(x, w, b, head_w, head_b, out, z, stage, st);
+  }
+  if (dtype == 1 && c_final > 0)
+    return launch_tc_vec<float>(x, w, b, head_w, head_b, out, z, stage, st);
+  if (dtype == 1) return launch_tc_vec<bf16>(x, w, b, head_w, head_b, out, z, stage, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -482,17 +507,18 @@ extern "C" int repnerv_fused_conv_ps_act(int dtype, const void* x, const void* w
                                          const float* head_b, void* out, int B, int H,
                                          int W, int Cin, int C, int s, int act,
                                          int c_final, int sigmoid_squash, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Stage stage{B, H, W, Cin, C, s, act, c_final, sigmoid_squash, 1, 1};
-  if (dtype == 0) {
-    // the smallest channel tile that holds C (the flagship's C = 96 fills one
-    // 96-wide tile); wider C walks 96-wide chunks
-    if (C <= 32) return launch_fma<32>(x, w, b, head_w, head_b, out, stage, st);
-    if (C <= 64) return launch_fma<64>(x, w, b, head_w, head_b, out, stage, st);
-    return launch_fma<96>(x, w, b, head_w, head_b, out, stage, st);
-  }
-  if (dtype == 1 && c_final > 0)
-    return launch_tc_vec<float>(x, w, b, head_w, head_b, out, stage, st);
-  if (dtype == 1) return launch_tc_vec<bf16>(x, w, b, head_w, head_b, out, stage, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stage(dtype, x, w, b, head_w, head_b, out, nullptr, B, H, W, Cin, C, s, act,
+                      c_final, sigmoid_squash, stream);
+}
+
+// The training forward: as repnerv_fused_conv_ps_act, and also z [B, H*s, W*s, C]
+// (the pre-activation, compute dtype).
+extern "C" int repnerv_train_stage_fwd(int dtype, const void* x, const void* w,
+                                       const float* b, const float* head_w,
+                                       const float* head_b, void* out, void* z, int B, int H,
+                                       int W, int Cin, int C, int s, int act, int c_final,
+                                       int sigmoid_squash, void* stream) {
+  if (z == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stage(dtype, x, w, b, head_w, head_b, out, z, B, H, W, Cin, C, s, act,
+                      c_final, sigmoid_squash, stream);
 }

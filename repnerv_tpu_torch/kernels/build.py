@@ -1,12 +1,13 @@
 """Build the package's CUDA sources into one shared library and load it.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a)
-into ``_build/libkernels-<hash>.so`` inside the package (a directory that
-``.gitignore`` lists) and the library is loaded with ``ctypes``.  The file
-name carries a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses the library.  The C entry points take plain pointers,
-so no PyTorch header is compiled and a build takes seconds.  A failed build
-raises with the compiler's output.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a),
+one compiler process per source, all started together, and links the
+objects into ``_build/libkernels-<hash>.so`` inside the package (a directory
+that ``.gitignore`` lists); the library is loaded with ``ctypes``.  The file
+name carries a hash of the sources, headers and flags, so an edit rebuilds
+and an unchanged tree reuses the library.  The C entry points take plain
+pointers, so no PyTorch header is compiled.  A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -23,10 +24,8 @@ from typing import Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -45,7 +44,7 @@ def find_nvcc() -> str:
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):  # .cu and .cuh
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libkernels-{h.hexdigest()[:16]}.so")
@@ -53,25 +52,50 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu if the library for these sources is missing; return
-    its path.  The compiler's output (``-Xptxas -v``: registers, shared
+    its path.  The compilers' output (``-Xptxas -v``: registers, shared
     memory, spills per kernel) is kept beside it as ``build.log``."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    jobs = []
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    objs = [obj for _, obj, _ in jobs]
+    tmp = f"{so}.{tag}"
+    log, failed = [], []
+    try:
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate(timeout=600)
+            log.append(" ".join(cmd) + f"\n# exit {proc.returncode}\n{out}")
+            if proc.returncode != 0:
+                failed.append(out)
+        if not failed:
+            cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            log.append(" ".join(cmd) + f"\n# exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(proc.stdout + proc.stderr)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + f"\n# {seconds:.2f} s, exit {proc.returncode}\n")
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        f.write(f"# {seconds:.2f} s, {len(jobs)} sources compiled in parallel\n")
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
     return so
 
@@ -83,10 +107,22 @@ def load_library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            fn = lib.repnerv_fused_conv_ps_act
             # dtype, x, w, b, head_w, head_b, out, B, H, W, Cin, C, s, act,
             # c_final, sigmoid_squash, stream
-            fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-            fn.restype = i
+            lib.repnerv_fused_conv_ps_act.argtypes = [i, p, p, p, p, p, p, *[i] * 9, p]
+            # ... the same with z after out
+            lib.repnerv_train_stage_fwd.argtypes = [i, p, p, p, p, p, p, p, *[i] * 9, p]
+            # dtype, z, ct, ct_head, out, hw, d_conv, db_part, dhw_part,
+            # dhb_part, B, H, W, C, s, act, c_final, sigmoid_squash, tile, stream
+            lib.repnerv_train_stage_bwd.argtypes = [i, *[p] * 9, *[i] * 9, p]
+            # x, out, N, H, W, window (host f32[size]), size, stream
+            lib.repnerv_gauss_blur_valid.argtypes = [p, p, i, i, i, p, i, p]
+            for fn in (
+                lib.repnerv_fused_conv_ps_act,
+                lib.repnerv_train_stage_fwd,
+                lib.repnerv_train_stage_bwd,
+                lib.repnerv_gauss_blur_valid,
+            ):
+                fn.restype = i
             _LIB = lib
         return _LIB

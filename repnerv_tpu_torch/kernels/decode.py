@@ -19,7 +19,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,12 +46,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 
 
-def shuffle_weight_permutation(cout: int, stride: int) -> torch.Tensor:
+def shuffle_weight_permutation(cout: int, stride: int, device=None) -> torch.Tensor:
     """perm such that w[..., perm] reorders PyTorch pixel-shuffle channel
-    order (c*s*s + i*s + j) into shuffle-major order ((i*s + j)*C + c)."""
+    order (c*s*s + i*s + j) into shuffle-major order ((i*s + j)*C + c).
+    Built on ``device`` itself: a copy from host memory would make the
+    stream wait."""
     s = stride
     c = cout // (s * s)
-    idx = torch.arange(cout)
+    idx = torch.arange(cout, device=device)
     return (idx % c) * s * s + idx // c
 
 
@@ -88,7 +90,7 @@ def pack_weights(
     kh, kw, cin, cout = w.shape
     if (kh, kw) != (3, 3) or cout % (stride * stride):
         raise ValueError(f"need a 3x3 kernel with Cout divisible by s^2, got {tuple(w.shape)}")
-    perm = shuffle_weight_permutation(cout, stride).to(w.device)
+    perm = shuffle_weight_permutation(cout, stride, w.device)
     w2 = w[..., perm].reshape(9 * cin, cout).to(compute_dtype).contiguous()
     if b is None:
         b = torch.zeros(cout, device=w.device)
@@ -116,28 +118,65 @@ def exact_f32() -> Iterator[None]:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def decode_stage_reference(
-    x: torch.Tensor, p: PackedStage, act: str = "swish", out_squash: str = "tanh"
-) -> torch.Tensor:
-    """The plain PyTorch version, with the kernel's cast points: inputs in
-    the compute dtype, then f32 conv, bias, activation, head and squash; the
-    output in the compute dtype, or f32 with a head."""
+def squash(y: torch.Tensor, out_squash: str) -> torch.Tensor:
+    return torch.sigmoid(y) if out_squash == "sigmoid" else (torch.tanh(y) + 1.0) * 0.5
+
+
+def stage_reference(
+    x: torch.Tensor, p: PackedStage, act: str, out_squash: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the stage kernels, with their cast
+    points: inputs in the compute dtype, then f32 conv, bias, activation,
+    head and squash; the output in the compute dtype, or f32 with a head.
+    Returns (out, the f32 pixel-shuffled pre-activation [B, H*s, W*s, C])."""
     cd = p.w.dtype
     s, c = p.stride, p.c
     bsz, h, w, cin = x.shape
     wk = p.w.float().reshape(3, 3, cin, -1).permute(3, 2, 0, 1)  # OIHW, shuffle-major O
     with exact_f32():
         acc = F.conv2d(x.to(cd).float().permute(0, 3, 1, 2), wk, padding=1)
-        acc = activation(acc.permute(0, 2, 3, 1) + p.b, act)  # [B, H, W, s*s*C]
+        acc = acc.permute(0, 2, 3, 1) + p.b  # [B, H, W, s*s*C]
         # shuffle-major pixel shuffle: channel (i*s + j)*C + c -> (h*s+i, w*s+j, c)
-        y = acc.reshape(bsz, h, w, s, s, c).permute(0, 1, 3, 2, 4, 5)
-        y = y.reshape(bsz, h * s, w * s, c)
+        pre = acc.reshape(bsz, h, w, s, s, c).permute(0, 1, 3, 2, 4, 5)
+        pre = pre.reshape(bsz, h * s, w * s, c)
+        y = activation(pre, act)
         if p.head_w is None:
-            return y.to(cd)
-        rgb = torch.matmul(y, p.head_w) + p.head_b
-    if out_squash == "sigmoid":
-        return torch.sigmoid(rgb)
-    return (torch.tanh(rgb) + 1.0) * 0.5
+            return y.to(cd), pre
+        return squash(torch.matmul(y, p.head_w) + p.head_b, out_squash), pre
+
+
+def decode_stage_reference(
+    x: torch.Tensor, p: PackedStage, act: str = "swish", out_squash: str = "tanh"
+) -> torch.Tensor:
+    """The plain version of ``decode_stage``."""
+    return stage_reference(x, p, act, out_squash)[0]
+
+
+def check_stage_args(
+    name: str, x: torch.Tensor, p: PackedStage, act: str, out_squash: str
+) -> int:
+    """Raise on what the stage kernels do not take; return the head width
+    (0 without a head)."""
+    bsz, h, w, cin = x.shape
+    s = p.stride
+    c_final = 0 if p.head_w is None else p.head_w.shape[1]
+    tensors = [x, p.w, p.b] + ([p.head_w, p.head_b] if c_final else [])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: x and the packed weights must share a device")
+    if x.dtype != p.w.dtype or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: x is {x.dtype}, weights {p.w.dtype}; need f32 or bf16")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: x (NHWC) and the packed weights must be contiguous")
+    if cin != p.cin or s not in (1, 2, 3, 4, 5) or not 0 <= c_final <= 16:
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)} vs weights {tuple(p.w.shape)}, stride {s}, "
+            f"head width {c_final}"
+        )
+    if act not in ACT_CODES or out_squash not in ("tanh", "sigmoid"):
+        raise ValueError(f"{name}: act {act!r}, squash {out_squash!r}")
+    if h >= 2**14 or w >= 2**14:
+        raise ValueError(f"{name}: H and W must be below 16384")
+    return c_final
 
 
 def decode_stage(
@@ -149,53 +188,61 @@ def decode_stage(
         return decode_stage_reference(x, p, act, out_squash)
     if x.device.type != "cuda":
         raise ValueError(f"decode_stage runs on cuda or cpu tensors, not {x.device}")
-    bsz, h, w, cin = x.shape
-    s, c = p.stride, p.c
-    c_final = 0 if p.head_w is None else p.head_w.shape[1]
-    tensors = [x, p.w, p.b] + ([p.head_w, p.head_b] if c_final else [])
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("decode_stage: x and the packed weights must share a device")
-    if x.dtype != p.w.dtype or x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"decode_stage: x is {x.dtype}, weights {p.w.dtype}; need f32 or bf16")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("decode_stage: x (NHWC) and the packed weights must be contiguous")
-    if cin != p.cin or s not in (1, 2, 3, 4, 5) or not 0 <= c_final <= 16:
-        raise ValueError(
-            f"decode_stage: x {tuple(x.shape)} vs weights {tuple(p.w.shape)}, stride {s}, "
-            f"head width {c_final}"
-        )
-    if act not in ACT_CODES or out_squash not in ("tanh", "sigmoid"):
-        raise ValueError(f"decode_stage: act {act!r}, squash {out_squash!r}")
-    if h >= 2**14 or w >= 2**14:
-        raise ValueError("decode_stage: H and W must be below 16384")
+    bsz, h, w, _ = x.shape
+    c_final = check_stage_args("decode_stage", x, p, act, out_squash)
     out_dtype = torch.float32 if c_final else x.dtype
-    out = torch.empty(bsz, h * s, w * s, c_final or c, device=x.device, dtype=out_dtype)
-    if max(x.numel(), p.w.numel(), out.numel()) > _INT32_MAX:
-        raise ValueError("decode_stage: tensors must hold fewer than 2**31 elements")
+    s = p.stride
+    out = torch.empty(bsz, h * s, w * s, c_final or p.c, device=x.device, dtype=out_dtype)
     if out.numel() == 0:
         return out
+    launch_stage_kernel(x, p, act, out_squash, out)
+    LAUNCHES += 1
+    return out
 
+
+def launch_stage_kernel(
+    x: torch.Tensor,
+    p: PackedStage,
+    act: str,
+    out_squash: str,
+    out: torch.Tensor,
+    z: Optional[torch.Tensor] = None,
+) -> None:
+    """Launch the stage kernel of ``csrc/decode.cu`` on checked CUDA inputs:
+    the decode stage, or with ``z`` the training forward, which also stores
+    the pre-activation there.  A refused launch raises."""
+    bsz, h, w, cin = x.shape
+    c_final = 0 if p.head_w is None else p.head_w.shape[1]
+    sizes = [x.numel(), p.w.numel(), out.numel()] + ([z.numel()] if z is not None else [])
+    if max(sizes) > _INT32_MAX:
+        raise ValueError("stage kernel: tensors must hold fewer than 2**31 elements")
     lib = load_library()  # builds csrc/*.cu on first use
     ptr = ctypes.c_void_p
+    pointers = [
+        ptr(x.data_ptr()),
+        ptr(p.w.data_ptr()),
+        ptr(p.b.data_ptr()),
+        ptr(p.head_w.data_ptr() if c_final else None),
+        ptr(p.head_b.data_ptr() if c_final else None),
+        ptr(out.data_ptr()),
+    ]
+    if z is None:
+        entry = lib.repnerv_fused_conv_ps_act
+    else:
+        entry = lib.repnerv_train_stage_fwd
+        pointers.append(ptr(z.data_ptr()))
     with torch.cuda.device(x.device):  # the runtime launches on the current device
-        err = lib.repnerv_fused_conv_ps_act(
+        err = entry(
             _DTYPE_CODES[x.dtype],
-            ptr(x.data_ptr()),
-            ptr(p.w.data_ptr()),
-            ptr(p.b.data_ptr()),
-            ptr(p.head_w.data_ptr() if c_final else None),
-            ptr(p.head_b.data_ptr() if c_final else None),
-            ptr(out.data_ptr()),
-            bsz, h, w, cin, c, s,
+            *pointers,
+            bsz, h, w, cin, p.c, p.stride,
             ACT_CODES[act],
             c_final,
             int(out_squash == "sigmoid"),
             ptr(torch.cuda.current_stream(x.device).cuda_stream),
         )
     if err != 0:
-        raise RuntimeError(f"fused_conv_ps_act kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return out
+        raise RuntimeError(f"stage kernel launch failed: cudaError {err}")
 
 
 def fused_conv_ps_act(

@@ -3,9 +3,12 @@
 
 ``out_channels = new_ngf * stride**2`` feeds a PixelShuffle(stride), so one
 stride-1 conv performs the upsampling.  The block holds its branch weights
-under the reference model's attribute names; ``forward`` is the online-fused
-path: fuse the branches into one 3x3 kernel, run one conv.  Deploy replaces
-the branches with a single ``rbr_reparam`` conv (``block_to_deploy``).
+under the reference model's attribute names.  ``forward`` runs the
+online-fused path by default: fuse the branches into one 3x3 kernel (autograd
+differentiates through the fusion algebra), run one conv; with
+``online_fuse=False`` it runs the branch-sum graph of the reference
+(``apply_branches_direct``).  Deploy replaces the branches with a single
+``rbr_reparam`` conv (``block_to_deploy``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import reparam
@@ -108,13 +112,75 @@ class NeRVBlock(nn.Module):
         else:
             raise KeyError(f"unknown branch_type {branch_type}")
 
-    def forward(self, x: torch.Tensor, mixed: bool = False) -> torch.Tensor:
-        """NHWC forward: one conv with the fused kernel, then pixel shuffle,
-        norm, act (the eval-mode fused path of the JAX ``apply_block``)."""
-        k, b = reparam.fuse(self.branch_type, self)
-        out = conv2d(x, k, b, mixed=mixed)
+    def forward(
+        self, x: torch.Tensor, mixed: bool = False, online_fuse: bool = True
+    ) -> torch.Tensor:
+        """NHWC forward: conv (fused, or the branch sum), pixel shuffle, norm,
+        act, as the JAX ``apply_block``."""
+        if self.rbr_reparam is not None or online_fuse:
+            k, b = reparam.fuse(self.branch_type, self)
+            out = conv2d(x, k, b, mixed=mixed)
+        else:
+            out = apply_branches_direct(self, x)
         out = pixel_shuffle(out, self.stride)
         return activation(self.norm(out), self.act)
+
+
+def _seqconv_apply(p: SeqConvWeights, x: torch.Tensor, mask: tuple) -> torch.Tensor:
+    """The literal SeqConv3x3 forward: 1x1 conv, a one-pixel border filled
+    with the 1x1 bias, then the depthwise mask conv."""
+    y = conv2d(x, p.k0, p.b0, padding="valid")
+    y = F.pad(y, (0, 0, 1, 1, 1, 1))
+    border = torch.ones(y.shape[1], y.shape[2], 1, dtype=torch.bool, device=y.device)
+    border[1:-1, 1:-1] = False
+    y = torch.where(border, p.b0.to(y.dtype), y)
+    m = torch.tensor(mask, dtype=p.scale.dtype, device=p.scale.device)
+    cout = p.scale.shape[0]
+    w = (m[None] * p.scale[:, 0]).reshape(cout, 1, 3, 3)
+    return conv2d(y, w, p.bias, padding="valid", groups=cout)
+
+
+def _avgpool3x3(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride 1, padding 1) with count_include_pad, NHWC."""
+    out = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=1, padding=1, count_include_pad=True)
+    return out.permute(0, 2, 3, 1)
+
+
+def apply_branches_direct(blk: NeRVBlock, x: torch.Tensor) -> torch.Tensor:
+    """The branch-by-branch conv output of the reference model (before pixel
+    shuffle), for every branch type."""
+    bt = blk.branch_type
+
+    def conv(m, inp, w=None):
+        return conv2d(inp, m.weight if w is None else w, m.bias)
+
+    if bt == "NeRV_vanilla":
+        return conv(blk.branch, x)
+    if bt in ("ERB", "ACB"):
+        out = (
+            conv(blk.rbr_3x3_branch, x)
+            + conv(blk.rbr_3x1_branch, x, reparam.pad_3x1_to_3x3(blk.rbr_3x1_branch.weight))
+            + conv(blk.rbr_1x3_branch, x, reparam.pad_1x3_to_3x3(blk.rbr_1x3_branch.weight))
+        )
+        if bt == "ERB":
+            h = conv(blk.rbr_1x1_3x3_1x1_branch_1x1_1, x)
+            h = conv(blk.rbr_1x1_3x3_1x1_branch_3x3, h)
+            h = conv(blk.rbr_1x1_3x3_1x1_branch_1x1_2, h)
+            out = out + h
+        return out
+    if bt == "RepVGG":
+        return conv(blk.rbr_3x3_branch, x) + conv(blk.rbr_1x1_branch, x)
+    if bt == "DBB":
+        seq = conv(blk.rbr_1x1_3x3_branch_3x3, conv(blk.rbr_1x1_3x3_branch_1x1, x))
+        avg = _avgpool3x3(conv(blk.rbr_1x1_avg_branch_1x1, x))
+        return conv(blk.rbr_3x3_branch, x) + conv(blk.rbr_1x1_branch, x) + seq + avg
+    if bt == "ECB":
+        seq = conv(blk.rbr_1x1_3x3_branch_3x3, conv(blk.rbr_1x1_3x3_branch_1x1, x))
+        out = conv(blk.rbr_3x3_branch, x) + seq
+        for name, mask in reparam.EDGE_MASKS.items():
+            out = out + _seqconv_apply(getattr(blk, name), x, mask)
+        return out
+    raise KeyError(bt)
 
 
 def block_to_deploy(blk: NeRVBlock) -> NeRVBlock:

@@ -6,6 +6,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -17,6 +18,15 @@ def parse_pe_spec(pe_spec: str):
         return None
     base, levels = pe_spec.split("_")
     return float(base), int(levels)
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_factors(base: float, levels: int, device: torch.device):
+    """(base**i rounded to f32 [levels], pi in f32) on ``device``, made once
+    per device: a copy from host memory on every call would make the
+    stream wait.  Read-only."""
+    bases = torch.tensor([base**i for i in range(levels)], dtype=torch.float32, device=device)
+    return bases, torch.tensor(math.pi, dtype=torch.float32, device=device)
 
 
 def positional_encoding(
@@ -33,10 +43,7 @@ def positional_encoding(
     base, levels = spec
     # f32 rounding order of the reference: (t * base**i) * pi, each product
     # rounded to f32; at level 39 the phase is ~2.3e4 and the order shows
-    bases = torch.tensor(
-        [base**i for i in range(levels)], dtype=torch.float32, device=t.device
-    )
-    pi = torch.tensor(math.pi, dtype=torch.float32, device=t.device)
+    bases, pi = _phase_factors(base, levels, t.device)
     phase = (t[:, None] * bases[None, :]) * pi  # [B, levels]
     # interleave [sin0, cos0, sin1, cos1, ...]
     out = torch.stack([torch.sin(phase), torch.cos(phase)], dim=-1)

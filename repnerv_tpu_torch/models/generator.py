@@ -2,31 +2,48 @@
 ``repnerv_tpu/models/generator.py``).
 
 ``forward(embed)`` returns a list of NHWC f32 frames, one per active head,
-as ``apply_generator(train=False)`` does.  The stem output is viewed NCHW
-[B, c, h, w] as in the reference and transposed to NHWC.
+as ``apply_generator`` does, with ``train`` taken from the module's
+training mode (a new ``Generator`` starts in eval mode).  The stem output
+is viewed NCHW [B, c, h, w] as in the reference and transposed to NHWC.
 
-Decode path: a deploy block (``rbr_reparam``) with norm none whose input has
-at least ``KERNEL_MIN_PIXELS`` pixels runs the fused decode stage
-(``kernels/decode.py``), the last one with the head fused in, after which
-the forward returns.  On a CUDA tensor that stage is the hand-written
-kernel; on a CPU tensor its plain version.  The kernel-layout weights are
-packed once per weight version and dtype, not on every call.
+Decode path (eval mode): a deploy block (``rbr_reparam``) with norm none
+whose input has at least ``KERNEL_MIN_PIXELS`` pixels runs the fused decode
+stage (``kernels/decode.py``), the last one with the head fused in, after
+which the forward returns.  The kernel-layout weights are packed once per
+weight version and dtype, not on every call.
+
+Training path (train mode): a block that passes the JAX package's
+``use_pallas_train`` gate (batch <= 2, norm none, online fusion, no remat,
+not "mixed", input >= ``KERNEL_MIN_PIXELS`` pixels) fuses its branches
+(autograd differentiates through the fusion) and runs
+``kernels/train_tail.fused_stage_train``, the last one with the head; other
+blocks run the library conv under autograd, through
+``torch.utils.checkpoint`` with ``remat``.
+
+On a CUDA tensor each fused stage is a hand-written kernel; on a CPU
+tensor its plain version.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, head_plan, stage_channels
 from ..kernels import decode as decode_kernel
+from ..kernels.train_tail import fused_stage_train
+from . import reparam
 from .blocks import NeRVBlock, block_to_deploy
 from .layers import MLP, ConvWeights, conv2d
 
 # below this input-pixel count a stage stays on the library conv even when
-# use_pallas_decode is set (the 9x16 stem map of the flagship gains nothing)
+# use_pallas_decode / use_pallas_train is set (the 9x16 stem map of the
+# flagship gains nothing)
 KERNEL_MIN_PIXELS = 1024
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "mixed": torch.float32}
@@ -69,7 +86,7 @@ class Generator(nn.Module):
         )
         self._packed: Dict[Tuple, decode_kernel.PackedStage] = {}
         self.to(device)
-        self.eval()  # the training forward is not ported yet (ROADMAP A3)
+        self.eval()
 
     def _packed_stage(
         self, li: int, head: Optional[ConvWeights], dtype: torch.dtype
@@ -95,16 +112,20 @@ class Generator(nn.Module):
         return self._packed[key]
 
     def forward(self, embed: torch.Tensor) -> List[torch.Tensor]:
-        """embed [B, embed_length] -> list of NHWC f32 frames (eval mode)."""
+        """embed [B, embed_length] -> list of NHWC f32 frames."""
         cfg = self.cfg
-        if self.training:
-            raise NotImplementedError("the training forward is not ported yet (ROADMAP A3)")
-        if cfg.decode_int8:
+        train = self.training
+        if cfg.decode_int8 and not train:
             raise NotImplementedError(
                 "decode_int8 is not ported yet (ROADMAP B5: the int8 decode kernel)"
             )
         mixed = cfg.compute_dtype == "mixed"
+        if train and mixed:
+            raise NotImplementedError(
+                'training with compute_dtype "mixed" is not ported yet (ROADMAP A1)'
+            )
         dtype = DTYPES[cfg.compute_dtype]
+        squash = "sigmoid" if cfg.sigmoid else "tanh"
         h, w, c = cfg.fc_hwd
 
         x = self.stem(embed, dtype=dtype, mixed=mixed)
@@ -115,27 +136,51 @@ class Generator(nn.Module):
         for head in self.head_layers:
             for _ in range(cfg.num_blocks):
                 blk = self.layers[li]
-                is_last = li == len(self.layers) - 1
-                use_kernel = (
-                    cfg.use_pallas_decode
+                fuse_head = head if li == len(self.layers) - 1 else None
+                big = x.shape[1] * x.shape[2] >= KERNEL_MIN_PIXELS
+                use_decode = (
+                    not train
+                    and cfg.use_pallas_decode
                     and cfg.norm == "none"
                     and blk.rbr_reparam is not None
-                    and x.shape[1] * x.shape[2] >= KERNEL_MIN_PIXELS
+                    and big
                 )
-                if use_kernel:
-                    fuse_head = head if is_last else None
+                use_ptrain = (
+                    train
+                    and cfg.use_pallas_train
+                    and x.shape[0] <= 2
+                    and cfg.norm == "none"
+                    and cfg.online_fuse
+                    and not cfg.remat
+                    and big
+                )
+                if use_decode:
                     p = self._packed_stage(li, fuse_head, dtype)
-                    x = decode_kernel.decode_stage(
-                        x.to(dtype).contiguous(),
-                        p,
+                    x = decode_kernel.decode_stage(x.to(dtype).contiguous(), p, cfg.act, squash)
+                elif use_ptrain:
+                    wt, bt = reparam.fuse(cfg.branch_type, blk)
+                    if bt is None:
+                        bt = torch.zeros(wt.shape[0], dtype=wt.dtype, device=wt.device)
+                    x = fused_stage_train(
+                        x,
+                        wt.permute(2, 3, 1, 0),  # OIHW -> HWIO
+                        bt,
+                        fuse_head.weight.permute(2, 3, 1, 0) if fuse_head is not None else None,
+                        fuse_head.bias if fuse_head is not None else None,
+                        blk.stride,
                         cfg.act,
-                        "sigmoid" if cfg.sigmoid else "tanh",
+                        squash,
+                        "float32" if cfg.compute_dtype == "float32" else "bfloat16",
                     )
-                    if fuse_head is not None:
-                        outputs.append(x.float())
-                        return outputs
                 else:
-                    x = blk(x, mixed=mixed)
+                    fuse_head = None
+                    if train and cfg.remat:
+                        x = checkpoint(blk, x, mixed, cfg.online_fuse, use_reentrant=False)
+                    else:
+                        x = blk(x, mixed=mixed, online_fuse=cfg.online_fuse)
+                if fuse_head is not None:
+                    outputs.append(x.float())
+                    return outputs
                 li += 1
             if head is not None:
                 img = conv2d(x, head.weight, head.bias)  # no bf16 cast in "mixed", as in JAX
@@ -145,15 +190,16 @@ class Generator(nn.Module):
 
 
 def generator_to_deploy(gen: Generator) -> Generator:
-    """Fuse every block's branches into one conv, in place, and mark the
-    config deployed (the per-layer switch_to_deploy sweep of the reference)."""
-    import dataclasses
-
-    for blk in gen.layers:
+    """A new generator with every block's branches fused into one conv and
+    the config marked deployed (the reference's switch_to_deploy sweep).
+    ``gen`` is left as it was, so training can go on after a deploy
+    snapshot, as with the JAX package's pure function."""
+    dep = copy.deepcopy(gen)
+    for blk in dep.layers:
         block_to_deploy(blk)
-    gen.cfg = dataclasses.replace(gen.cfg, deploy=True)
-    gen._packed.clear()
-    return gen
+    dep.cfg = dataclasses.replace(gen.cfg, deploy=True)
+    dep._packed = {}
+    return dep
 
 
 def param_count(gen: nn.Module) -> int:

@@ -1,5 +1,5 @@
 """Primitive layers (port of ``repnerv_tpu/models/layers.py``): activations,
-eval-mode norms, the MLP stem, pixel shuffle, conv and initializers.
+norms, the MLP stem, pixel shuffle, conv and initializers.
 
 Conventions:
 
@@ -61,14 +61,17 @@ class Activation(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Norms, eval mode, NHWC
+# Norms, NHWC
 # ---------------------------------------------------------------------------
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the channel (last) axis, with the
-    reference's parameter names and no ``num_batches_tracked`` buffer (the
-    checkpoint bridge writes none)."""
+    """Batch norm over the channel (last) axis, with the reference's
+    parameter names and no ``num_batches_tracked`` buffer (the checkpoint
+    bridge writes none).  In training mode it normalizes with the batch
+    statistics and never updates the running ones, as the JAX package's
+    ``apply_norm(train=True)`` does (unlike ``nn.BatchNorm2d``); in eval
+    mode it uses the running statistics."""
 
     def __init__(self, ch: int, eps: float = 1e-5):
         super().__init__()
@@ -79,8 +82,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+        if self.training:
+            mean = x.mean(dim=(0, 1, 2))
+            var = x.var(dim=(0, 1, 2), unbiased=False)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 class InstanceNorm(nn.Module):

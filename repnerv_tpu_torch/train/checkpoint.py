@@ -1,16 +1,22 @@
-"""The weight bridge between the JAX package's parameter pytree and the
-port's modules (the numpy mirror of
-``repnerv_tpu.train.checkpoint.params_to_torch_state``).
+"""Checkpoints (port of ``repnerv_tpu/train/checkpoint.py``) and the weight
+bridge between the JAX package's parameter pytree and the port's modules.
 
 Both sides name tensors as the reference PyTorch model does
 (``stem.{2i}.weight``, ``layers.{li}.rbr_3x3_branch.weight``,
 ``head_layers.{hi}.weight``, ...), so a state built here loads into a
 ``Generator`` with ``strict=True``.
+
+* ``.pth`` files keep the reference's dict layout, ``{"state_dict": ...,
+  **extra}`` (epoch and the best metrics), and are what the JAX package's
+  ``save_pth`` writes;
+* the resume file (``resume_latest.pt``) takes the place of the JAX
+  package's Orbax state: model, optimizer, global step and epoch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,3 +97,52 @@ def load_state(model: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:
     }
     model.load_state_dict(tensors, strict=True)
     return model
+
+
+def save_pth(path: str, state: Mapping[str, torch.Tensor], extra: Optional[dict] = None) -> None:
+    """Write ``{"state_dict": <CPU tensors>, **extra}`` from a state dict."""
+    ckpt = {"state_dict": {k: v.detach().cpu() for k, v in state.items()}}
+    if extra:
+        ckpt.update(extra)
+    torch.save(ckpt, path)
+
+
+def load_pth(path: str) -> Tuple[Dict[str, np.ndarray], dict]:
+    """Read a reference-layout ``.pth`` -> (numpy state for ``load_state``,
+    extra).  Drops a ``module.`` (DDP) prefix and thop's
+    ``total_ops``/``total_params`` entries, as the JAX package does."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = ckpt.get("state_dict", ckpt)
+    out = {}
+    for k, v in state.items():
+        if "total_ops" in k or "total_params" in k:
+            continue
+        out[k[len("module."):] if k.startswith("module.") else k] = v.numpy()
+    extra = {k: v for k, v in ckpt.items() if k != "state_dict"}
+    return out, extra
+
+
+RESUME_FILE = "resume_latest.pt"
+
+
+def save_resume(outf: str, model: nn.Module, optimizer: torch.optim.Optimizer, step: int,
+                epoch: int) -> None:
+    """Write the resumable training state (atomically: a cut run never leaves
+    a partial file)."""
+    path = os.path.join(outf, RESUME_FILE)
+    tmp = path + ".tmp"
+    torch.save(
+        {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+         "step": int(step), "epoch": int(epoch)},
+        tmp,
+    )
+    os.replace(tmp, path)
+
+
+def load_resume(outf: str, model: nn.Module, optimizer: torch.optim.Optimizer) -> Tuple[int, int]:
+    """Load the resume file into ``model`` and ``optimizer``; return (step, epoch)."""
+    device = next(model.parameters()).device
+    ckpt = torch.load(os.path.join(outf, RESUME_FILE), map_location=device, weights_only=True)
+    model.load_state_dict(ckpt["model"], strict=True)
+    optimizer.load_state_dict(ckpt["optimizer"])
+    return int(ckpt["step"]), int(ckpt["epoch"])

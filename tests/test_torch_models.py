@@ -87,7 +87,7 @@ def test_eval_norms_match_jax(norm):
     x = rng.standard_normal((2, 5, 6, 4)).astype(np.float32)
     p = {k: rng.random(4).astype(np.float32) + 0.5 for k in ("scale", "bias", "mean", "var")}
     ref = jlayers.apply_norm({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), norm, train=False)
-    mod = tlayers.make_norm(norm, 4)
+    mod = tlayers.make_norm(norm, 4).eval()  # train mode uses the batch statistics
     if norm == "bn":
         mod.load_state_dict(
             {"weight": torch.from_numpy(p["scale"]), "bias": torch.from_numpy(p["bias"]),
@@ -202,7 +202,7 @@ def test_generator_refuses_unported_modes():
     gen = Generator(tiny_model(decode_int8=True))
     with pytest.raises(NotImplementedError, match="ROADMAP B5"):
         gen(torch.zeros(1, gen.cfg.embed_length))
-    gen = Generator(tiny_model())
+    gen = Generator(tiny_model(compute_dtype="mixed"))
     gen.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         gen(torch.zeros(1, gen.cfg.embed_length))
