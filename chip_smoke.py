@@ -3,8 +3,10 @@
 NVIDIA GPU: build the hand-written kernels, hold each against its plain
 PyTorch version at the flagship shapes, serve a flagship-width ``.rnvb``
 artifact through ``repnerv_tpu_torch.cli.decode_main``, and train the
-flagship through ``repnerv_tpu_torch.cli.train_main``, checking that both
-main paths went through the kernels and match their plain paths.
+flagship through ``repnerv_tpu_torch.cli.train_main``, compress that
+training run through ``repnerv_tpu_torch.cli.eval_main`` and serve its
+``.rnvb`` in int8, checking that every main path went through the kernels
+and matches its plain path.
 
     python3 chip_smoke.py
 
@@ -26,12 +28,20 @@ Phases (each prints its own lines; any failure exits non-zero):
                losses, PSNR rising, the .pth files; one step of the kernel
                path vs --no_pallas_train (loss, gradients); ms per step of
                both paths; where a step's time goes (torch.profiler)
+  7. int8-kernel — K2 (int8 decode stage) vs plain version at the flagship's
+               int8 blocks 3 and 4 + head (batch 8) and the stride-5 stage
+  8. compress — eval_main on phase 6's bf16 run: PATH B (prune 0.2, 8 bits,
+               .rnvb) without and with --decode_int8, PATH A (1 masked
+               finetune epoch), QAT (1 epoch); then decode_main --decode_int8
+               serves the .rnvb: 2 K1 + 2 K2 launches per batch, frames vs
+               the plain path, fps of the int8, bf16 and plain paths
 The last line is {"ok": true, "device": {...}}.  Needs no network; imports
 no JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -45,15 +55,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repnerv_tpu_torch.cli import decode_main, train_main
+from repnerv_tpu_torch.cli import decode_main, eval_main, train_main
 from repnerv_tpu_torch.compress.bitstream import read_bitstream, write_state_bitstream
 from repnerv_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from repnerv_tpu_torch.data.frames import FrameStore, synthetic_video
 from repnerv_tpu_torch.kernels import build
 from repnerv_tpu_torch.kernels import decode as dk
+from repnerv_tpu_torch.kernels import decode_int8 as k8
 from repnerv_tpu_torch.kernels import ssim_blur as sb
 from repnerv_tpu_torch.kernels import train_tail as tt
-from repnerv_tpu_torch.models.generator import Generator, param_count
+from repnerv_tpu_torch.models.embedding import positional_encoding
+from repnerv_tpu_torch.models.generator import Generator, calibrate_int8, param_count
 from repnerv_tpu_torch.train.loop import (
     DECODE_REPS,
     init_train_state,
@@ -396,11 +408,12 @@ def phase_train_kernels() -> dict:
 
 
 def launch_counts() -> dict:
-    return {"K1": dk.LAUNCHES, "K3": tt.FWD_LAUNCHES, "K4": tt.BWD_LAUNCHES, "K5": sb.LAUNCHES}
+    return {"K1": dk.LAUNCHES, "K2": k8.LAUNCHES, "K3": tt.FWD_LAUNCHES,
+            "K4": tt.BWD_LAUNCHES, "K5": sb.LAUNCHES}
 
 
 def reset_counts() -> None:
-    dk.LAUNCHES = tt.FWD_LAUNCHES = tt.BWD_LAUNCHES = sb.LAUNCHES = 0
+    dk.LAUNCHES = k8.LAUNCHES = tt.FWD_LAUNCHES = tt.BWD_LAUNCHES = sb.LAUNCHES = 0
 
 
 def _train_cfg(dtype: str, use_kernel: bool) -> TrainConfig:
@@ -608,6 +621,223 @@ def phase_train(tmp: str) -> dict:
     return results
 
 
+# int8 stages of the flagship decode (int8_from_block -2: blocks 3 and 4 +
+# head), (name, H, W, Cin, C, stride, head); the stride-5 stage-0 shape
+# (Cin 26: byte copies) is checked for the general case
+INT8_SHAPES = [
+    ("block3", 180, 320, 96, 96, 2, False),
+    ("block4+head", 360, 640, 96, 96, 2, True),
+    ("stride5", 9, 16, 26, 26, 5, False),
+]
+INT8_MAIN_PATH_SHAPES = ("block3", "block4+head")
+# int8 out: kernel and plain version sum the same integer products exactly
+# and run the same f32 epilogue with one rounding per operation; only the
+# activation's expf (a few ulps apart) can move a value across a .5
+# boundary: within 1 count, under 1e-3 of the values differing.  Head out:
+# the 1x1 head sums C = 96 f32 products in another order, the squash's slope
+# is <= 1/2: 1e-5.  On an H100 the largest reading over 8 seeds at these
+# inputs was 2.98e-7, and 2.3e-6 with head weights sqrt(C) times larger.
+INT8_FRAC = 1e-3
+INT8_HEAD_ATOL = 1e-5
+
+
+def phase_int8_kernel() -> list:
+    g = torch.Generator().manual_seed(SEED)
+    dev = torch.device("cuda", 0)
+    rows = []
+    for name, h, w, cin, c, s, head in INT8_SHAPES:
+        cout = c * s * s
+        # activations and weights quantized by the scheme itself, as a
+        # calibration would: the dequantized sums are O(1)
+        x = torch.randn(SERVE_BATCH, h, w, cin, generator=g).to(dev)
+        wt = (torch.randn(3, 3, cin, cout, generator=g) * (9 * cin) ** -0.5).to(dev)
+        b = (torch.randn(cout, generator=g) * 0.1).to(dev)
+        sx = torch.clamp_min(x.abs().amax(), 1e-12) / 127.0
+        x_q = k8.quantize_act_int8(x, sx)
+        w_q, sw = k8.quantize_weight_int8(wt)
+        if head:
+            hw = ((torch.rand(1, 1, c, 3, generator=g) * 2 - 1) * c**-0.5).to(dev)
+            hb = ((torch.rand(3, generator=g) * 2 - 1) * c**-0.5).to(dev)
+            p = k8.pack_int8_stage(w_q, sx * sw, b, s, head_w=hw, head_b=hb)
+        else:
+            # swish of an O(1) sum: ~6 is the largest over a batch
+            p = k8.pack_int8_stage(w_q, sx * sw, b, s,
+                                   out_scale=torch.tensor(6.0 / 127, device=dev))
+        del x, wt
+        out = k8.decode_stage_int8(x_q, p, "swish", "tanh")
+        ref = k8.decode_stage_int8_reference(x_q, p, "swish", "tanh")
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            raise AssertionError(f"{name}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if head:
+            frac = 0.0
+            tol = f"{INT8_HEAD_ATOL:g}"
+            ok = err <= INT8_HEAD_ATOL and bool(torch.isfinite(out).all())
+        else:
+            frac = (diff > 0).float().mean().item()
+            tol = f"1 count, under {INT8_FRAC:g} of values differing"
+            ok = err <= 1 and frac < INT8_FRAC
+        ms = cuda_ms(lambda: k8.decode_stage_int8(x_q, p, "swish", "tanh"))
+        plain_ms = cuda_ms(lambda: k8.decode_stage_int8_reference(x_q, p, "swish", "tanh"))
+        log(f"[int8-kernel] {name:12s} x_q[{SERVE_BATCH},{h},{w},{cin}] s={s} -> "
+            f"{list(out.shape)} {str(out.dtype).replace('torch.', '')}: max|d|={err:.3e}, "
+            f"share differing {frac:.3e} (tol {tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version at {name}")
+        rows.append({"shape": name, "in": [SERVE_BATCH, h, w, cin], "out": list(out.shape),
+                     "max_abs_err": err, "share_differing": frac, "tol": tol,
+                     "ms": ms, "plain_ms": plain_ms})
+        del x_q, out, ref, diff, p
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the compress CLI on phase 6's bf16 run (its flags, its output directory)
+EVAL_ARGV = TRAIN_ARGV + ["--compute_dtype", "bfloat16", "--outf", "bfloat16"]
+PRUNE, QBIT = 0.2, 8
+PATH_B = ["--prune_ratio", str(PRUNE), "--quant_bit", str(QBIT), "--save_bitstream"]
+COMPRESS_RUNS = [
+    # (name, extra flags, result file, finetune epochs, pruned)
+    ("path-b", PATH_B, f"only_prune{PRUNE:.2f}_quant{QBIT}.txt", 0, True),
+    ("path-b-int8", PATH_B + ["--decode_int8"], f"only_prune{PRUNE:.2f}_quant{QBIT}.txt", 0, True),
+    ("path-a", ["--prune_ratio", str(PRUNE), "--quant_bit", str(QBIT), "--finetune",
+                "--finetune_epochs", "1"], f"finetune_e1_pr{PRUNE:.2f}_q{QBIT}.txt", 1, True),
+    ("qat", ["--finetune", "--qat", "--finetune_epochs", "1", "--quant_bit", str(QBIT)],
+     f"finetune_qat_e1_pr1.00_q{QBIT}.txt", 1, False),
+]
+# the int8 decode against the bf16 decode of the same weights, in val PSNR
+# (dB); the JAX package's record on its trained flagship is -0.36 dB.  On
+# the 2-epoch model (~10 dB) this bound cannot catch a wrong int8 path: the
+# int8 Generator path is held on the card by the serving check below, which
+# compares its frames with the plain versions of K1 and K2 on the same tables.
+INT8_PSNR_BOUND = 0.5
+# served int8 frames, kernel path vs the plain versions of K1 and K2 with
+# the same tables: blocks 1-2 in bf16 differ as phase 4's bf16 frames do
+# (the plain path's extra bf16 roundings), which can move a block-3 input
+# count across a .5 boundary, and K2's expf ulps can move a requantized
+# count; the squash's slope <= 1/2 bounds what a count moves
+SERVE_INT8_ATOL = SERVE_BF16_ATOL
+
+
+def _eval_run(tmp: str, extra: list) -> tuple:
+    cwd = os.getcwd()
+    os.chdir(tmp)  # eval_main reads and writes under result/<outf>
+    try:
+        reset_counts()  # the main path's run starts here
+        t0 = time.perf_counter()
+        eval_main.main(EVAL_ARGV + extra)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()  # ... and ends here
+    finally:
+        os.chdir(cwd)
+    return counts, wall
+
+
+def phase_compress(tmp: str) -> dict:
+    outf = os.path.join(tmp, "result", "bfloat16")
+    rnvb = os.path.join(outf, f"model_pr{PRUNE:.2f}_q{QBIT}.rnvb")
+    results = {}
+    artifact = None
+    steps = TRAIN_FRAMES  # -b 1: one step per frame
+    for name, extra, fname, ft_epochs, pruned in COMPRESS_RUNS:
+        counts, wall = _eval_run(tmp, extra)
+        path = os.path.join(outf, fname)
+        if not os.path.exists(path):
+            raise AssertionError(f"{name}: eval_main wrote no {fname}")
+        with open(path) as f:
+            res = json.loads(f.read().strip().splitlines()[-1])
+        log(f"[compress] {name}: eval_main in {wall:.1f} s; PSNR {res['val_psnr'][-1]:.4f} "
+            f"MS-SSIM {res['val_msssim'][-1]:.4f} BPP {res['bpp']:.6f} prune "
+            f"{res['prune_ratio']:.4f} efficiency {res['efficiency']:.4f} fps {res['fps']:.2f} "
+            f"micro-fps {res['micro_fps']:.2f}; launches {counts}")
+        if not all(np.isfinite(v) for v in (res["val_psnr"][-1], res["bpp"], res["fps"])):
+            raise AssertionError(f"{name}: non-finite result {res}")
+        if pruned and abs(res["prune_ratio"] - PRUNE) > 0.05:
+            raise AssertionError(f"{name}: prune ratio {res['prune_ratio']} vs {PRUNE}")
+        if "--save_bitstream" in extra:
+            # eval_main raises unless the .rnvb decodes to the evaluated weights bit-exactly
+            if not os.path.exists(rnvb) or res.get("bitstream_bytes", 0) <= 0:
+                raise AssertionError(f"{name}: no .rnvb")
+            state = read_bitstream(rnvb)[0]  # the header differs: it records --decode_int8
+            if artifact is not None and (list(state) != list(artifact) or not all(
+                    np.array_equal(state[k], artifact[k]) for k in state)):
+                raise AssertionError("PATH B wrote other weights from the same checkpoint")
+            artifact = state
+        want = 4 * steps * ft_epochs  # blocks 1-4 of every finetune step
+        if counts["K3"] != want or counts["K4"] != want:
+            raise AssertionError(f"{name}: K3/K4 launches {counts}, expected {want} each")
+        if ft_epochs and counts["K5"] <= 0:
+            raise AssertionError(f"{name}: the finetune loss launched no K5")
+        if ("--decode_int8" in extra) != (counts["K2"] > 0):
+            raise AssertionError(f"{name}: K2 launches {counts['K2']}")
+        results[name] = {**res, "launches": counts, "wall_s": wall}
+    d_psnr = results["path-b-int8"]["val_psnr"][-1] - results["path-b"]["val_psnr"][-1]
+    log(f"[compress] int8 decode vs bf16 decode of the same PATH B weights: val PSNR "
+        f"{d_psnr:+.4f} dB (bound {INT8_PSNR_BOUND})")
+    if abs(d_psnr) > INT8_PSNR_BOUND:
+        raise AssertionError(f"int8 val PSNR moved {d_psnr} dB")
+    results["int8_psnr_delta_db"] = d_psnr
+
+    # serve the artifact in int8
+    n_batches = SERVE_FRAMES // SERVE_BATCH
+    reset_counts()  # the main path's run starts here
+    serve = decode_main.main([rnvb, "--frames", str(SERVE_FRAMES), "--batch", str(SERVE_BATCH),
+                              "--decode_int8"])
+    counts = launch_counts()  # ... and ends here
+    per = 2 * n_batches * (1 + DECODE_REPS)
+    log(f"[compress] decode_main --decode_int8 -> {serve}; launches {counts} (expect "
+        f"{per} K1 and {per} K2: 2 + 2 per batch)")
+    if counts["K1"] != per or counts["K2"] != per:
+        raise AssertionError(f"int8 serving launched {counts}, expected {per} K1 and {per} K2")
+
+    dev = torch.device("cuda", 0)
+    st, acfg, _ = read_bitstream(rnvb)
+    base = decode_main.serving_model(st, acfg, dev)
+    calib_t = torch.arange(min(8, SERVE_FRAMES), dtype=torch.float32, device=dev) / SERVE_FRAMES
+    icfg = dataclasses.replace(base.cfg, decode_int8=True)
+    model = copy.deepcopy(base)
+    model.cfg = icfg
+    model = calibrate_int8(model, positional_encoding(calib_t, icfg.embed))
+    plain = copy.deepcopy(model)  # the same tables through the plain versions
+    plain.cfg = dataclasses.replace(icfg, use_pallas_decode=False)
+    t = torch.arange(SERVE_BATCH, dtype=torch.float32, device=dev) / SERVE_FRAMES
+    frame_t = np.arange(SERVE_FRAMES) / SERVE_FRAMES
+    real_stage = k8.decode_stage_int8
+    frames = make_decode_fn(TrainConfig(model=icfg))(model, t)
+    k8.decode_stage_int8 = k8.decode_stage_int8_reference
+    try:
+        ref = make_decode_fn(TrainConfig(model=plain.cfg))(plain, t)
+        torch.cuda.synchronize()
+        plain_fps = measure_decode_fps(plain, TrainConfig(model=plain.cfg), frame_t, SERVE_BATCH)
+    finally:
+        k8.decode_stage_int8 = real_stage
+    if tuple(frames.shape) != (SERVE_BATCH, 720, 1280, 3) or frames.dtype != torch.float32:
+        raise AssertionError(f"int8 frames {tuple(frames.shape)} {frames.dtype}")
+    if not bool(torch.isfinite(frames).all()) or frames.min() < 0 or frames.max() > 1:
+        raise AssertionError("int8 frames are not finite values in [0, 1]")
+    diff = (frames - ref).abs()
+    err, mean_err = diff.max().item(), diff.mean().item()
+    log(f"[compress] int8 serving, first batch: kernel path vs plain path max|d|={err:.3e} "
+        f"mean|d|={mean_err:.3e} (tol {SERVE_INT8_ATOL:g})")
+    if err > SERVE_INT8_ATOL:
+        raise AssertionError(f"int8 served frames differ from the plain path by {err}")
+    bf16_fps = measure_decode_fps(base, TrainConfig(model=base.cfg), frame_t, SERVE_BATCH)
+    log(f"[compress] fps at batch {SERVE_BATCH} ({base.cfg.compute_dtype} artifact): int8 kernel "
+        f"path {serve['fps']:.2f}, {base.cfg.compute_dtype} K1 path {bf16_fps:.2f}, int8 plain "
+        f"path {plain_fps:.2f}")
+    results["serve_int8"] = {
+        "launches": counts, "fps": serve["fps"], "bf16_fps": bf16_fps, "plain_fps": plain_fps,
+        "frames_max_abs_err": err, "frames_mean_abs_err": mean_err,
+        "compute_dtype": base.cfg.compute_dtype,
+    }
+    del base, model, plain, frames, ref, diff
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -616,6 +846,8 @@ def main() -> None:
         serve = phase_serve(tmp)
         train_rows = phase_train_kernels()
         train = phase_train(tmp)
+        int8_rows = phase_int8_kernel()
+        compress = phase_compress(tmp)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("the port imported jax")
 
@@ -665,7 +897,22 @@ def main() -> None:
         "plain_ms": sum(r["step_plain_ms"] for r in rows),
         "shapes": rows,
     })
+    main_rows = [r for r in int8_rows if r["shape"] in INT8_MAIN_PATH_SHAPES]
+    kernels.append({
+        "name": "fused_conv_ps_act_int8[int8]", "route": "cuda",
+        "source": "repnerv_tpu_torch/csrc/decode_int8.cu",
+        "replaces": "repnerv_tpu/pallas_kernels/decode_int8.py:78",
+        "launches": compress["serve_int8"]["launches"]["K2"],
+        # int8 outputs in counts, the head's in f32
+        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
+        # one batch of 8 frames through blocks 3-4 + head of the flagship
+        "ms": sum(r["ms"] for r in main_rows),
+        "plain_ms": sum(r["plain_ms"] for r in main_rows),
+        "shapes": int8_rows,
+        "serve": compress["serve_int8"],
+    })
     log("[train] summary " + json.dumps(train))
+    log("[compress] summary " + json.dumps(compress))
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])
     print(json.dumps(

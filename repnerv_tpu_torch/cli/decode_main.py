@@ -2,16 +2,19 @@
 of ``repnerv_tpu/cli/decode_main.py``).
 
     python -m repnerv_tpu_torch.cli.decode_main model.rnvb --frames 132 \
-        [--out frames_dir] [--batch N] [--device cuda]
+        [--out frames_dir] [--decode_int8] [--batch N] [--device cuda]
 
 Frame timestamps follow the training convention t_i = i/N.  Without
 ``--out`` it measures decode throughput on the card (CUDA events); with
-``--out`` it writes pred_{i}.png, on any device.
+``--out`` it writes pred_{i}.png, on any device.  ``--decode_int8`` runs the
+trailing blocks through the int8 stage, calibrated on the first
+``min(8, N)`` frames.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Dict
@@ -21,7 +24,8 @@ import torch
 
 from ..compress.bitstream import read_bitstream
 from ..config import ModelConfig, TrainConfig, output_hw
-from ..models.generator import Generator, generator_to_deploy
+from ..models.embedding import positional_encoding
+from ..models.generator import Generator, calibrate_int8, generator_to_deploy
 from ..train.checkpoint import load_state
 from ..train.loop import decode_batch_cap, make_decode_fn, measure_decode_fps
 
@@ -41,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--decode_int8", action="store_true",
-        help="int8 trailing stages: not yet ported (ROADMAP B5)",
+        help="int8 trailing stages (calibrated on the first frames)",
     )
     p.add_argument(
         "--mesh_shape", type=int, nargs="*", default=None,
@@ -69,8 +73,6 @@ def main(argv=None) -> dict:
     a = parser.parse_args(argv)
     if a.frames <= 0:
         parser.error(f"--frames must be positive (got {a.frames})")
-    if a.decode_int8:
-        parser.error("--decode_int8 is not yet ported (ROADMAP B5)")
     if a.mesh_shape is not None:
         parser.error("--mesh_shape is not yet ported (ROADMAP A8)")
     device = torch.device(a.device)
@@ -81,6 +83,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     state, mcfg, header = read_bitstream(a.artifact)
+    if a.decode_int8:
+        mcfg = dataclasses.replace(mcfg, decode_int8=True)
     model = serving_model(state, mcfg, device)
     mcfg = model.cfg
     print(
@@ -88,6 +92,13 @@ def main(argv=None) -> dict:
         f"branch={mcfg.branch_type}, deploy={header['model_cfg']['deploy']}, "
         f"compute={mcfg.compute_dtype}, device={device}"
     )
+    if a.decode_int8:
+        calib_t = torch.arange(min(8, a.frames), dtype=torch.float32, device=device) / a.frames
+        model = calibrate_int8(model, positional_encoding(calib_t, mcfg.embed))
+        if model.int8:
+            print("int8 decode calibrated")
+        else:
+            print("WARNING: int8 calibration skipped; using non-int8 path")
 
     h, w = output_hw(mcfg)
     n = a.frames

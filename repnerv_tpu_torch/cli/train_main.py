@@ -67,6 +67,8 @@ def deploy_state(model, state=None) -> dict:
 
 def run_training(cfg: TrainConfig, device="cuda") -> dict:
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but no CUDA device is available")
     if device.type == "cuda":
         # full-f32 convs and matmuls: TF32 would move f32 training by ~1e-3
         torch.backends.cudnn.allow_tf32 = False
@@ -239,10 +241,7 @@ def _refusal(a) -> str:
 
 def main(argv=None) -> dict:
     parser = build_parser(eval_mode=False)
-    parser.add_argument(
-        "--device", default="cuda" if torch.cuda.is_available() else "cpu",
-        help="torch device (default: cuda when there is one)",
-    )
+    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     a = parser.parse_args(argv)
     refused = _refusal(a)
     if refused:

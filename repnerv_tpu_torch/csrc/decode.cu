@@ -46,6 +46,7 @@
 #include <cstdint>
 
 #include "activations.cuh"
+#include "stage_common.cuh"
 
 namespace {
 
@@ -59,29 +60,10 @@ template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
 
 using repnerv::apply_act;
-
-// Everything a block needs to know about the problem and its own place in it.
-struct Stage {
-  int B, H, W, Cin, C, s, act, c_final, sigmoid_squash;
-  int chunk_groups, chunks_per_block;
-  __device__ int M() const { return B * H * W; }
-};
-
-// Output pixel index (in units of channels-rows) of GEMM row m, sub-pixel (si, sj).
-__device__ __forceinline__ long long out_pixel(const Stage& st, int m, int si, int sj) {
-  const int HW = st.H * st.W;
-  const int bi = m / HW, rem = m % HW;
-  const int h = rem / st.W, wc = rem % st.W;
-  return ((long long)bi * st.H * st.s + (long long)h * st.s + si) * ((long long)st.W * st.s) +
-         (long long)wc * st.s + sj;
-}
-
-// Rows are kept packed as (h << 16 | w); rows past M get an h never in bounds.
-__device__ __forceinline__ int pack_row(const Stage& st, int m) {
-  if (m >= st.M()) return 0x3fff << 16;
-  const int r = m % (st.H * st.W);
-  return ((r / st.W) << 16) | (r % st.W);
-}
+using repnerv::grid_for;
+using repnerv::out_pixel;
+using repnerv::pack_row;
+using repnerv::Stage;
 
 // Epilogue of one channel chunk for the TM x TN values a thread holds (rows
 // m0 + ty + ROW_STRIDE*r, chunk columns tx + 16*c): bias + activation, then
@@ -141,8 +123,8 @@ __device__ __forceinline__ void store_head(const Stage& st, const float (&head_a
     const int m = m0 + ty + ROW_STRIDE * r;
     if (m >= st.M()) continue;
     const float y = head_acc[r] + head_b[tx];
-    const float o = st.sigmoid_squash ? 1.f / (1.f + expf(-y)) : (tanhf(y) + 1.f) * 0.5f;
-    out[out_pixel(st, m, si, sj) * st.c_final + tx] = from_f32<OutT>(o);
+    out[out_pixel(st, m, si, sj) * st.c_final + tx] =
+        from_f32<OutT>(repnerv::squash(y, st.sigmoid_squash));
   }
 }
 
@@ -426,16 +408,6 @@ kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   store_head<OutT, TM, 16>(st, head_acc, m0, ty, tx, si, sj, head_b, out);
 }
 }  // namespace tensor_core
-
-// Without a head every (sub-pixel, channel chunk) pair is its own block; with
-// one, a block walks all chunks of its sub-pixel.
-dim3 grid_for(Stage& st, int bm, int bn) {
-  const int n_chunks = (st.C + bn - 1) / bn;
-  st.chunk_groups = st.c_final > 0 ? 1 : n_chunks;
-  st.chunks_per_block = st.c_final > 0 ? n_chunks : 1;
-  const long long M = (long long)st.B * st.H * st.W;
-  return dim3((unsigned)((M + bm - 1) / bm), (unsigned)(st.s * st.s * st.chunk_groups));
-}
 
 template <int BN>
 cudaError_t launch_fma(const void* x, const void* w, const float* b, const float* hw,

@@ -134,7 +134,7 @@ def _seqconv_apply(p: SeqConvWeights, x: torch.Tensor, mask: tuple) -> torch.Ten
     border = torch.ones(y.shape[1], y.shape[2], 1, dtype=torch.bool, device=y.device)
     border[1:-1, 1:-1] = False
     y = torch.where(border, p.b0.to(y.dtype), y)
-    m = torch.tensor(mask, dtype=p.scale.dtype, device=p.scale.device)
+    m = reparam.edge_mask(mask, p.scale.dtype, p.scale.device)
     cout = p.scale.shape[0]
     w = (m[None] * p.scale[:, 0]).reshape(cout, 1, 3, 3)
     return conv2d(y, w, p.bias, padding="valid", groups=cout)

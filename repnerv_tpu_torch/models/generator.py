@@ -12,6 +12,17 @@ stage (``kernels/decode.py``), the last one with the head fused in, after
 which the forward returns.  The kernel-layout weights are packed once per
 weight version and dtype, not on every call.
 
+int8 decode (eval mode, ``decode_int8``): checked before the decode path,
+with the JAX gate (norm none, a deploy block, an entry for the block in the
+module's ``int8`` tables; no pixel-count gate), a block runs the int8 stage
+(``kernels/decode_int8.py``): a non-int8 input is quantized with the block's
+``in_scale``, an int8 input passes through, and the last block fuses the
+head and returns f32.  ``calibrate_int8`` returns a copy of a deploy
+generator with the tables; each entry holds its stage packed in the
+kernel's layout when it is made (``int8_entry``).  The tables live outside
+``state_dict()``, so checkpoints and ``load_state(strict=True)`` do not
+see them.
+
 Training path (train mode): a block that passes the JAX package's
 ``use_pallas_train`` gate (batch <= 2, norm none, online fusion, no remat,
 not "mixed", input >= ``KERNEL_MIN_PIXELS`` pixels) fuses its branches
@@ -28,7 +39,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, head_plan, stage_channels
 from ..kernels import decode as decode_kernel
+from ..kernels import decode_int8
 from ..kernels.train_tail import fused_stage_train
 from . import reparam
 from .blocks import NeRVBlock, block_to_deploy
@@ -52,6 +64,18 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "mixed": torch.f
 def stage_out_widths(cfg: ModelConfig) -> List[int]:
     plan = stage_channels(cfg)
     return [plan[(i + 1) * cfg.num_blocks - 1][1] for i in range(len(cfg.strides))]
+
+
+class Int8Entry(NamedTuple):
+    """One block's int8 decode table (the JAX params' ``int8[str(i)]``) and
+    the same table in the kernel's layout."""
+
+    w_q: torch.Tensor  # [3, 3, Cin, Cout] int8, HWIO, PixelShuffle channel order
+    scale: torch.Tensor  # [Cout] f32, in_scale * sw
+    in_scale: torch.Tensor  # scalar f32, the block input's quantization step
+    b: Optional[torch.Tensor]  # [Cout] f32
+    out_scale: Optional[torch.Tensor]  # scalar f32, the next block's in_scale
+    packed: decode_int8.PackedInt8Stage
 
 
 class Generator(nn.Module):
@@ -85,6 +109,8 @@ class Generator(nn.Module):
             for i, has_head in enumerate(head_plan(cfg))
         )
         self._packed: Dict[Tuple, decode_kernel.PackedStage] = {}
+        # int8 decode tables by block index (str, as the JAX params' keys)
+        self.int8: Dict[str, Int8Entry] = {}
         self.to(device)
         self.eval()
 
@@ -115,10 +141,6 @@ class Generator(nn.Module):
         """embed [B, embed_length] -> list of NHWC f32 frames."""
         cfg = self.cfg
         train = self.training
-        if cfg.decode_int8 and not train:
-            raise NotImplementedError(
-                "decode_int8 is not ported yet (ROADMAP B5: the int8 decode kernel)"
-            )
         mixed = cfg.compute_dtype == "mixed"
         if train and mixed:
             raise NotImplementedError(
@@ -137,6 +159,23 @@ class Generator(nn.Module):
             for _ in range(cfg.num_blocks):
                 blk = self.layers[li]
                 fuse_head = head if li == len(self.layers) - 1 else None
+                q = (
+                    self.int8.get(str(li))
+                    if cfg.decode_int8
+                    and not train
+                    and cfg.norm == "none"
+                    and blk.rbr_reparam is not None
+                    else None
+                )
+                if q is not None:
+                    if x.dtype != torch.int8:
+                        x = decode_int8.quantize_act_int8(x, q.in_scale)
+                    x = decode_int8.decode_stage_int8(x.contiguous(), q.packed, cfg.act, squash)
+                    if fuse_head is not None:
+                        outputs.append(x)
+                        return outputs
+                    li += 1
+                    continue
                 big = x.shape[1] * x.shape[2] >= KERNEL_MIN_PIXELS
                 use_decode = (
                     not train
@@ -200,6 +239,80 @@ def generator_to_deploy(gen: Generator) -> Generator:
     dep.cfg = dataclasses.replace(gen.cfg, deploy=True)
     dep._packed = {}
     return dep
+
+
+@torch.no_grad()
+def int8_entry(gen: Generator, li: int, w_q, scale, in_scale, b, out_scale) -> Int8Entry:
+    """Block ``li``'s int8 table for ``gen``, its stage packed in the
+    kernel's layout once, here: the last block with ``gen``'s head fused,
+    the others requantizing to ``out_scale``."""
+    head = gen.head_layers[-1] if li == len(gen.layers) - 1 else None
+    packed = decode_int8.pack_int8_stage(
+        w_q, scale, b, gen.layers[li].stride,
+        out_scale=out_scale if head is None else None,
+        head_w=head.weight.permute(2, 3, 1, 0) if head is not None else None,
+        head_b=head.bias if head is not None else None,
+    )
+    return Int8Entry(w_q, scale, in_scale, b, out_scale, packed)
+
+
+@torch.no_grad()
+def calibrate_int8(gen: Generator, calib_embeds: torch.Tensor) -> Generator:
+    """A copy of the deploy generator ``gen`` with int8 decode tables for the
+    trailing blocks (from ``len(blocks) + cfg.int8_from_block`` on), as the
+    JAX package's ``calibrate_int8``: an f32 forward over ``calib_embeds`` in
+    2-frame chunks through the library conv (whatever ``compute_dtype`` is:
+    a bf16 decode would move the abs-max), the abs-max of each block's
+    input, then per block the per-channel int8 weights, ``in_scale =
+    max(amax, 1e-12) / 127``, ``scale = in_scale * sw`` and the next block's
+    scale as ``out_scale``, all f32 on the generator's device.  ``gen`` is
+    left as it was.  Multi-head layouts and an ``int8_from_block`` out of
+    range are declined: ``gen`` itself comes back, without tables."""
+    cfg = gen.cfg
+    heads = head_plan(cfg)
+    if any(heads[:-1]) or not heads[-1]:
+        return gen
+    n_blocks = len(gen.layers)
+    first = n_blocks + cfg.int8_from_block
+    if not 0 <= first < n_blocks:
+        return gen
+    if any(blk.rbr_reparam is None for blk in gen.layers):
+        raise ValueError("calibrate_int8 needs a deploy generator (fused blocks)")
+
+    h, w, c = cfg.fc_hwd
+    emb = calib_embeds.to(torch.float32)
+    pad = (-emb.shape[0]) % 2
+    if pad:  # repeating the last frame cannot change any max
+        emb = torch.cat([emb, emb[-1:].expand(pad, -1)])
+    amax = torch.zeros(n_blocks, dtype=torch.float32, device=emb.device)
+    was_training = gen.training
+    gen.eval()
+    try:
+        with decode_kernel.exact_f32():
+            for chunk in emb.split(2):
+                x = gen.stem(chunk)
+                x = x.reshape(x.shape[0], c, h, w).permute(0, 2, 3, 1)
+                per_block = []
+                for blk in gen.layers:
+                    per_block.append(x.abs().amax())
+                    x = blk(x)
+                amax = torch.maximum(amax, torch.stack(per_block))
+    finally:
+        gen.train(was_training)
+
+    out = copy.deepcopy(gen)
+    out._packed = {}
+    out.int8 = {}
+    for i in range(first, n_blocks):
+        rbr = out.layers[i].rbr_reparam
+        w_q, sw = decode_int8.quantize_weight_int8(rbr.weight.detach().permute(2, 3, 1, 0))
+        in_scale = torch.clamp_min(amax[i], 1e-12) / 127.0
+        out.int8[str(i)] = int8_entry(
+            out, i, w_q, in_scale * sw, in_scale,
+            rbr.bias.detach().to(torch.float32) if rbr.bias is not None else None,
+            torch.clamp_min(amax[i + 1], 1e-12) / 127.0 if i + 1 < n_blocks else None,
+        )
+    return out
 
 
 def param_count(gen: nn.Module) -> int:

@@ -16,6 +16,7 @@ its exactness notes are the JAX package's:
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -57,10 +58,18 @@ def fuse_seq_3x3_1x1(w2: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     return torch.einsum("om,miuv->oiuv", w3[:, :, 0, 0], w2)
 
 
+@functools.lru_cache(maxsize=None)
+def edge_mask(mask: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 3x3 edge mask as a tensor on ``device``, made once per (mask, dtype,
+    device): a copy from host memory on every forward would make the stream
+    wait.  Read-only."""
+    return torch.tensor(mask, dtype=dtype, device=device)
+
+
 def fuse_edge_branch(p: nn.Module, mask: tuple) -> Fused:
     """SeqConv3x3 edge branch with params k0 [O, I, 1, 1], b0 [O],
     scale [O, 1, 1, 1], bias [O]."""
-    m = torch.tensor(mask, dtype=p.k0.dtype, device=p.k0.device)
+    m = edge_mask(mask, p.k0.dtype, p.k0.device)
     eff_mask = p.scale[:, 0] * m[None]  # [O, 3, 3]
     kernel = p.k0 * eff_mask[:, None]  # [O, I, 3, 3]
     bias = p.b0 * eff_mask.sum(dim=(1, 2)) + p.bias

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..models.generator import Generator, Int8Entry, int8_entry
 
 # JAX branch-param key -> reference nn.Module attribute
 BRANCH_NAME_MAP = {
@@ -84,6 +85,25 @@ def state_from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str
             if "b" in head:
                 out[f"head_layers.{hi}.bias"] = np.asarray(head["b"])
     return out
+
+
+def int8_tables_from_jax(
+    table: Mapping[str, Mapping[str, Any]], gen: Generator
+) -> Dict[str, Int8Entry]:
+    """A JAX params' ``"int8"`` subtree (leaves as numpy arrays) -> the int8
+    decode tables of ``gen`` (``Generator.int8``, on its device, the last
+    block packed with its head), the same values: the layouts agree (w_q is
+    HWIO on both sides)."""
+    device = next(gen.parameters()).device
+
+    def t(v):
+        return torch.from_numpy(np.array(v)).to(device) if v is not None else None
+
+    return {
+        k: int8_entry(gen, int(k), t(e["w_q"]), t(e["scale"]), t(e["in_scale"]),
+                      t(e.get("b")), t(e.get("out_scale")))
+        for k, e in table.items()
+    }
 
 
 def load_state(model: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:

@@ -82,11 +82,18 @@ def _apply_masks(tensors: Dict[str, torch.Tensor], masks: Masks) -> None:
             t.mul_(m.to(t.dtype))
 
 
-def build_train_step_fn(cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool = True):
+def build_train_step_fn(
+    cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool = True, param_transform=None
+):
     """The train step: (state, frames [B, H, W, 3] f32, t [B], masks | None)
     -> (state, aux) with aux["loss"], aux["lr"] and aux["psnr"] [n_stage]
     (and aux["msssim"]) as device tensors (``lr`` a float).  The state's
-    model and optimizer update in place; its step counter advances."""
+    model and optimizer update in place; its step counter advances.
+
+    ``param_transform`` ({name: parameter} -> {name: tensor}) is applied
+    before the forward only: the forward runs on the transformed tensors
+    (``torch.func.functional_call``) and the gradients reach the latent
+    parameters through it (compress/qat.py's straight-through quantizer)."""
     mcfg = cfg.model
     warmup_epochs = cfg.warmup_epochs()
     # "sample" reproduces the reference's adjust_lr denominator at b > 1
@@ -108,7 +115,12 @@ def build_train_step_fn(cfg: TrainConfig, steps_per_epoch: int, with_msssim: boo
             )
         )
         model, opt = state.model, state.optimizer
-        outs = model(positional_encoding(t, mcfg.embed))
+        embed = positional_encoding(t, mcfg.embed)
+        if param_transform is None:
+            outs = model(embed)
+        else:
+            params = param_transform(dict(model.named_parameters()))
+            outs = torch.func.functional_call(model, params, (embed,))
         targets = [adaptive_avg_pool(frames, o.shape[1:3]) for o in outs]
         loss = multi_scale_loss(outs, targets, cfg.loss_type, cfg.lw)
         opt.zero_grad(set_to_none=True)

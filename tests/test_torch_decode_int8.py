@@ -1,0 +1,386 @@
+"""The port's int8 decode (repnerv_tpu_torch/kernels/decode_int8.py, the int8
+gate of models/generator.py, calibrate_int8, decode_main --decode_int8)
+against the JAX package, and the CUDA kernel against its plain version on
+the card.
+
+On the CPU the port's wrapper runs the plain PyTorch version; the JAX side
+runs its Pallas kernel in interpret mode (tests/test_int8_decode.py's
+monkeypatch; without it a JAX decode_int8 on the CPU silently decodes in
+f32).  Inputs come from a numpy seed.  Tolerances:
+
+* the quantizers: bit-equal (the same f32 division / multiplication and
+  half-to-even rounding on both sides);
+* int8 stage outputs: within 1 count, under 1% of them differing
+  (tests/test_int8_decode.py's own bound: the integer sums are exact, the
+  f32 epilogue's activation may land on the other side of a .5 boundary);
+* f32 head outputs: 1e-5;
+* calibration: w_q equal, scales rtol 1e-5 (the abs-max comes from two f32
+  forwards that sum in different orders).
+
+JAX is imported inside the parity tests so that the CUDA-only tests run
+where JAX is not installed:
+    python -m pytest --noconftest -m gpu tests/test_torch_decode_int8.py
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repnerv_tpu_torch.kernels import decode_int8 as k8
+
+ACTS = ["swish", "relu", "gelu", "leaky", "hardswish"]
+
+
+def _q_inputs(B=2, H=6, W=10, Cin=8, C=4, s=2, head=False, seed=0):
+    """Realistic int8 stage inputs: f32 activations and weights quantized by
+    the scheme itself, so the dequantized sums are O(1)."""
+    rng = np.random.default_rng(seed)
+    cout = C * s * s
+    x = rng.standard_normal((B, H, W, Cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, Cin, cout)) * (9 * Cin) ** -0.5).astype(np.float32)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    sx = np.float32(np.abs(x).max() / 127)
+    w_q, sw = k8.quantize_weight_int8(torch.from_numpy(w))
+    x_q = k8.quantize_act_int8(torch.from_numpy(x), torch.tensor(sx))
+    hw = (rng.standard_normal((1, 1, C, 3)) * 0.3).astype(np.float32) if head else None
+    hb = np.asarray([0.1, -0.2, 0.3], np.float32) if head else None
+    return x_q.numpy(), w_q.numpy(), (sx * sw).numpy(), b, hw, hb
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.asarray(a))
+
+
+def _jax_interpret(monkeypatch):
+    """The JAX int8 path on the CPU: the kernel in interpret mode, the TPU
+    gate off (tests/test_int8_decode.py:101-107)."""
+    import repnerv_tpu.models.generator as jgen
+    import repnerv_tpu.pallas_kernels.decode_int8 as d8
+
+    orig = d8.fused_conv_ps_act_int8
+    monkeypatch.setattr(d8, "fused_conv_ps_act_int8",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    monkeypatch.setattr(jgen, "PALLAS_REQUIRE_TPU", False)
+
+
+def _assert_int8_close(got: np.ndarray, ref: np.ndarray):
+    assert got.dtype == ref.dtype == np.int8 and got.shape == ref.shape
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 0.01
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 6, 12), (3, 3, 26, 104), (4, 7)])
+def test_quantizers_bit_equal_to_jax(shape):
+    import jax.numpy as jnp
+
+    from repnerv_tpu.pallas_kernels import decode_int8 as d8
+
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal(shape).astype(np.float32)
+    w[..., 0] = 0.0  # an all-zero channel takes the 1e-12 floor
+    jq, jsw = d8.quantize_weight_int8(jnp.asarray(w))
+    q, sw = k8.quantize_weight_int8(torch.from_numpy(w))
+    assert q.dtype == torch.int8 and sw.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(sw.numpy(), np.asarray(jsw))
+    # activations: f32 / bf16 inputs, a scale that puts values on .5 boundaries
+    x = (rng.integers(-600, 600, size=shape) * 0.25).astype(np.float32)
+    sx = np.float32(2.0)
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        ref = np.asarray(d8.quantize_act_int8(jnp.asarray(x).astype(jdt), jnp.float32(sx)))
+        got = k8.quantize_act_int8(torch.from_numpy(x).to(dt), torch.tensor(sx))
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _jax_stage(x_q, w_q, scale, b, s, act, hw, hb, squash, out_scale):
+    import jax.numpy as jnp
+
+    from repnerv_tpu.pallas_kernels.decode_int8 import fused_conv_ps_act_int8
+
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    out = fused_conv_ps_act_int8(
+        j(x_q), j(w_q), j(scale), j(b), s, act,
+        out_scale=None if hw is not None else jnp.float32(out_scale),
+        head_w=j(hw), head_b=j(hb), out_squash=squash, interpret=True,
+    )
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize(
+    "stride,head,act",
+    [
+        (2, None, "swish"),
+        (5, None, "swish"),
+        (2, None, "relu"),
+        (2, None, "gelu"),
+        (2, "tanh", "swish"),
+        (5, "sigmoid", "swish"),
+        (2, "sigmoid", "hardswish"),
+    ],
+)
+def test_plain_stage_matches_jax_kernel(stride, head, act):
+    C = 4 if head else 3
+    x_q, w_q, scale, b, hw, hb = _q_inputs(C=C, s=stride, head=head is not None, seed=stride)
+    out_scale = np.float32(0.013)
+    ref = _jax_stage(x_q, w_q, scale, b, stride, act, hw, hb, head, out_scale)
+    before = k8.LAUNCHES
+    out = k8.fused_conv_ps_act_int8(
+        _t(x_q), _t(w_q), _t(scale), _t(b), stride, act,
+        out_scale=None if head else torch.tensor(out_scale),
+        head_w=_t(hw), head_b=_t(hb), out_squash=head,
+    )
+    assert k8.LAUNCHES == before  # a CPU tensor takes the plain version, no launch
+    if head is None:
+        _assert_int8_close(out.numpy(), ref)
+    else:
+        assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_plain_stage_integer_sum_is_exact_at_any_width():
+    """Cin 96 sums in f32, Cin 160 in float64: both equal the int64 sum."""
+    for cin in (96, 160):
+        rng = np.random.default_rng(cin)
+        x = rng.integers(-127, 128, (1, 3, 4, cin)).astype(np.int8)
+        w = rng.integers(-127, 128, (9 * cin, 8)).astype(np.int8)
+        xp = np.pad(x.astype(np.int64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+        ref = sum(
+            xp[:, dy : dy + 3, dx : dx + 4, :] @ w.astype(np.int64).reshape(9, cin, 8)[3 * dy + dx]
+            for dy in range(3) for dx in range(3)
+        )
+        got = k8.int_conv3x3(torch.from_numpy(x), torch.from_numpy(w))
+        np.testing.assert_array_equal(got.numpy(), ref.astype(np.float32))
+
+
+def test_pack_rejects_bad_modes():
+    x_q, w_q, scale, b, _, _ = _q_inputs()
+    with pytest.raises(ValueError, match="exactly one"):
+        k8.pack_int8_stage(_t(w_q), _t(scale), _t(b), 2)
+    with pytest.raises(ValueError):
+        k8.pack_int8_stage(_t(w_q).float(), _t(scale), _t(b), 2, out_scale=torch.tensor(0.1))
+    p = k8.pack_int8_stage(_t(w_q), _t(scale), _t(b), 2, out_scale=torch.tensor(0.1))
+    with pytest.raises(ValueError):
+        k8.decode_stage_int8(torch.zeros(1, 4, 4, 8, dtype=torch.int8, device="meta"), p)
+
+
+# ---------------------------------------------------------------------------
+# The generator: calibration, the int8 gate, decode_main
+# ---------------------------------------------------------------------------
+
+
+def _tiny_int8_cfg(**over):
+    from test_model_train import tiny_model
+
+    cfg = tiny_model(branch_type="ERB", fc_hw_dim="6_8_8", strides=(2, 2, 2), lower_width=8,
+                     **over)
+    return dataclasses.replace(cfg, use_pallas_decode=False)
+
+
+def _jax_deploy(seed):
+    import jax
+
+    from repnerv_tpu.models.generator import generator_to_deploy, init_generator
+
+    params = init_generator(jax.random.PRNGKey(seed), _tiny_int8_cfg())
+    return generator_to_deploy(params, _tiny_int8_cfg())
+
+
+def _port(params, cfg):
+    import jax
+
+    from repnerv_tpu_torch.models.generator import Generator
+    from repnerv_tpu_torch.train.checkpoint import load_state, state_from_jax_params
+
+    return load_state(Generator(cfg), state_from_jax_params(jax.tree.map(np.asarray, params), cfg))
+
+
+T_CALIB = np.asarray([0.1, 0.5, 0.9], np.float32)  # odd: the last frame repeats
+
+
+@pytest.fixture(scope="module")
+def calibrated():
+    """A tiny ERB deploy generator calibrated on both sides."""
+    import jax.numpy as jnp
+
+    from repnerv_tpu.models.embedding import positional_encoding as jpe
+    from repnerv_tpu.models.generator import calibrate_int8 as jcal
+
+    from repnerv_tpu_torch.models.embedding import positional_encoding
+    from repnerv_tpu_torch.models.generator import calibrate_int8
+
+    dep, dcfg = _jax_deploy(3)
+    jdep8 = jcal(dep, dcfg, jpe(jnp.asarray(T_CALIB), dcfg.embed))
+    gen = _port(dep, dcfg)
+    before = {k: v.clone() for k, v in gen.state_dict().items()}
+    gen8 = calibrate_int8(gen, positional_encoding(torch.from_numpy(T_CALIB), dcfg.embed))
+    return dep, dcfg, jdep8, gen, gen8, before
+
+
+def test_calibrate_int8_tables_match_jax(calibrated):
+    _, _, jdep8, _, gen8, _ = calibrated
+    assert set(gen8.int8) == set(jdep8["int8"]) == {"1", "2"}
+    for k, ref in jdep8["int8"].items():
+        q = gen8.int8[k]
+        # packed once with the table: the last block fuses the head
+        assert (q.packed.head_w is None) == (q.packed.inv_out is not None) == (k != "2")
+        np.testing.assert_array_equal(q.w_q.numpy(), np.asarray(ref["w_q"]))
+        for name in ("scale", "in_scale", "b", "out_scale"):
+            got, want = getattr(q, name), ref.get(name)
+            assert (got is None) == (want is None), (k, name)
+            if want is not None:
+                assert got.dtype == torch.float32
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, err_msg=name)
+
+
+def test_calibrate_int8_is_pure_and_declines(calibrated):
+    from repnerv_tpu_torch.models.generator import Generator, calibrate_int8
+
+    _, dcfg, _, gen, gen8, before = calibrated
+    assert gen.int8 == {} and gen8 is not gen and not gen.training
+    assert list(gen.state_dict()) == list(before) == list(gen8.state_dict())
+    for k, v in gen.state_dict().items():
+        assert torch.equal(v, before[k]) and torch.equal(gen8.state_dict()[k], v), k
+    emb = torch.zeros(2, gen.cfg.embed_length)
+    for cfg in (dataclasses.replace(dcfg, int8_from_block=-4),
+                dataclasses.replace(dcfg, single_res=False)):
+        other = Generator(cfg)
+        assert calibrate_int8(other, emb) is other and other.int8 == {}
+    with pytest.raises(ValueError, match="deploy"):
+        calibrate_int8(Generator(_tiny_int8_cfg()), emb)
+
+
+def test_int8_generator_decode_matches_jax(calibrated, monkeypatch):
+    """The same table on both sides (int8_tables_from_jax): the int8 decode
+    of the port equals JAX apply_generator(decode_int8=True).  Frames within
+    1e-2: block 1's int8 output may differ by a count where the two f32
+    epilogues land on the other side of a .5 boundary (< 1% of values, see
+    above), and block 2 carries that into a few output pixels; the squash's
+    slope <= 1/2 bounds it."""
+    import jax.numpy as jnp
+
+    from repnerv_tpu.models.embedding import positional_encoding as jpe
+    from repnerv_tpu.models.generator import apply_generator
+
+    from repnerv_tpu_torch.models.embedding import positional_encoding
+    from repnerv_tpu_torch.models.generator import Generator
+    from repnerv_tpu_torch.train.checkpoint import int8_tables_from_jax, load_state
+
+    _jax_interpret(monkeypatch)
+    dep, dcfg, jdep8, gen, _, _ = calibrated
+    icfg = dataclasses.replace(dcfg, decode_int8=True)
+    t = np.asarray([0.2, 0.7], np.float32)
+    ref = np.asarray(apply_generator(jdep8, jpe(jnp.asarray(t), icfg.embed), icfg, train=False)[0])
+    port = load_state(Generator(icfg), gen.state_dict())
+    port.int8 = int8_tables_from_jax({k: {n: np.asarray(v) for n, v in e.items()}
+                                      for k, e in jdep8["int8"].items()}, port)
+    before = k8.LAUNCHES
+    with torch.no_grad():
+        out = port(positional_encoding(torch.from_numpy(t), icfg.embed))[0]
+    assert k8.LAUNCHES == before
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape == (2, 48, 64, 3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-2)
+    assert np.abs(out.numpy() - ref).mean() < 1e-4
+    # the int8 path is taken: it differs from the f32 decode by quantization noise
+    with torch.no_grad():
+        f32 = gen(positional_encoding(torch.from_numpy(t), icfg.embed))[0]
+    err = (out - f32).abs()
+    assert 0 < err.max().item() < 0.08
+
+
+def test_decode_main_int8_matches_jax(tmp_path, monkeypatch):
+    """decode_main --decode_int8 --out on the same .rnvb: the port's PNGs
+    within one 8-bit level of the JAX decode_main's, except where an int8
+    count differs (bounded above): those pixels within 3 levels."""
+    from PIL import Image
+
+    from repnerv_tpu.cli import decode_main as jdecode_main
+    from repnerv_tpu.compress.bitstream import write_bitstream
+
+    from repnerv_tpu_torch.cli import decode_main
+
+    _jax_interpret(monkeypatch)
+    monkeypatch.chdir(tmp_path)  # the JAX CLI keeps its compile cache in the cwd
+    dep, dcfg = _jax_deploy(4)
+    path = str(tmp_path / "m.rnvb")
+    write_bitstream(path, dep, dcfg, 8)
+    n = 5
+    jdecode_main.main([path, "--frames", str(n), "--batch", "2", "--decode_int8", "--out", "jax"])
+    before = k8.LAUNCHES
+    res = decode_main.main([path, "--frames", str(n), "--batch", "2", "--decode_int8",
+                            "--out", "port", "--device", "cpu"])
+    assert k8.LAUNCHES == before and res["frames"] == n
+
+    def frames(d):
+        return np.stack([np.asarray(Image.open(os.path.join(d, f"pred_{i}.png")), np.int32)
+                         for i in range(n)])
+
+    got, ref = frames("port"), frames("jax")
+    assert got.shape == ref.shape == (n, 48, 64, 3)
+    diff = np.abs(got - ref)
+    assert diff.max() <= 3 and (diff > 1).mean() < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# On the card: the CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "H,W,Cin,C,s,head",
+    [
+        (8, 16, 8, 3, 1, None),
+        (8, 16, 8, 4, 2, "tanh"),
+        (8, 16, 8, 4, 2, "sigmoid"),
+        (7, 20, 26, 26, 5, None),  # Cin and C not multiples of 16: byte copies
+        (7, 20, 26, 26, 5, "tanh"),
+        (5, 13, 96, 96, 2, None),  # the flagship's widths: 16-byte copies
+        (5, 13, 96, 96, 2, "tanh"),
+        (6, 9, 16, 100, 3, "tanh"),  # C over one 96-wide chunk: the head sums two
+        (3, 11, 12, 130, 2, None),  # C over one 96-wide chunk
+    ],
+)
+def test_cuda_kernel_matches_plain(cuda, H, W, Cin, C, s, head):
+    x_q, w_q, scale, b, hw, hb = _q_inputs(B=2, H=H, W=W, Cin=Cin, C=C, s=s,
+                                          head=head is not None)
+    dev = lambda a: None if a is None else torch.from_numpy(np.asarray(a)).to(cuda)  # noqa: E731
+    p = k8.pack_int8_stage(dev(w_q), dev(scale), dev(b), s,
+                           out_scale=None if head else torch.tensor(0.013, device=cuda),
+                           head_w=dev(hw), head_b=dev(hb))
+    xin = dev(x_q).contiguous()
+    before = k8.LAUNCHES
+    out = k8.decode_stage_int8(xin, p, "swish", head or "tanh")
+    ref = k8.decode_stage_int8_reference(xin, p, "swish", head or "tanh")
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES == before + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if head is None:
+        # the same integer sums and f32 epilogue; expf's ulps may move a
+        # value across a .5 boundary
+        _assert_int8_close(out.cpu().numpy(), ref.cpu().numpy())
+    else:
+        assert (out - ref).abs().max().item() <= 1e-5  # head sum order over C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_kernel_activations(cuda, act):
+    x_q, w_q, scale, b, _, _ = _q_inputs(B=1, H=6, W=10, Cin=16, C=4, s=2, seed=3)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to(cuda)  # noqa: E731
+    p = k8.pack_int8_stage(dev(w_q), dev(scale), dev(b), 2, out_scale=torch.tensor(0.02, device=cuda))
+    out = k8.decode_stage_int8(dev(x_q), p, act)
+    ref = k8.decode_stage_int8_reference(dev(x_q), p, act)
+    _assert_int8_close(out.cpu().numpy(), ref.cpu().numpy())

@@ -199,10 +199,30 @@ def test_generator_bf16_matches_jax():
 
 
 def test_generator_refuses_unported_modes():
-    gen = Generator(tiny_model(decode_int8=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        gen(torch.zeros(1, gen.cfg.embed_length))
     gen = Generator(tiny_model(compute_dtype="mixed"))
     gen.train()
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         gen(torch.zeros(1, gen.cfg.embed_length))
+
+
+@pytest.mark.parametrize("online_fuse", [True, False])
+def test_ecb_forward_builds_no_host_tensor_after_the_first(monkeypatch, online_fuse):
+    """ECB's edge masks are made once per (dtype, device) and kept there: a
+    second forward makes no torch.tensor from host data (on the card each
+    such copy waits for the stream).  The ECB parity tests keep the values
+    honest."""
+    blk = NeRVBlock(ngf=4, new_ngf=3, stride=2, branch_type="ECB",
+                    generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 5, 6, 4, generator=torch.Generator().manual_seed(1))
+    first = blk(x, online_fuse=online_fuse)
+    calls = []
+    real = torch.tensor
+
+    def counting_tensor(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "tensor", counting_tensor)
+    second = blk(x, online_fuse=online_fuse)
+    assert calls == []
+    assert torch.equal(first, second)

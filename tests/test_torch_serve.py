@@ -144,7 +144,7 @@ def test_unported_flags_and_cpu_fps_refuse(tmp_path):
     write_state_bitstream(
         path, {k: v.detach().numpy() for k, v in Generator(cfg).state_dict().items()}, cfg
     )
-    for flag in (["--decode_int8"], ["--mesh_shape", "2"]):
+    for flag in (["--mesh_shape", "2"],):
         with pytest.raises(SystemExit):
             decode_main.main([path, "--frames", "2", "--device", "cpu", *flag])
     # fps is a device metric: without a card it fails instead of timing the CPU

@@ -90,3 +90,15 @@ def test_train_cli_refuses_later_slices(tmp_path, monkeypatch, capsys, extra, ro
     assert e.value.code == 2
     assert row in capsys.readouterr().err
     assert not os.path.exists("result")
+
+
+def test_train_cli_needs_a_card_by_default(tmp_path, monkeypatch):
+    """--device defaults to cuda: without a card the CLI raises, naming
+    CUDA, instead of training on the CPU, and writes nothing."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in ARGV if a not in ("--device", "cpu")]
+    assert len(argv) == len(ARGV) - 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main.main(argv + ["-e", "1"])
+    assert not os.path.exists("result")
