@@ -12,9 +12,14 @@ and matches its plain path.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — a CUDA device is required; its name and power limit
-  2. build   — nvcc builds csrc/*.cu from the checkout, one process per source
+  2. build   — nvcc builds csrc/*.cu from the checkout, one process per source;
+               the library's SASS is searched for HGMMA (wgmma) instructions
   3. kernel  — K1 (decode stage) vs plain version, f32 and bf16, at the shapes
-               the serve phase gives it (Bunny-720p ERB flagship, batch 8)
+               the serve phase gives it (Bunny-720p ERB flagship, batch 8); per
+               shape the route it took (wgmma / wmma / fma), its bound (the
+               least time the card could take, ``roofline``), the time of one
+               F.conv2d on the same shape (the library yardstick, used nowhere
+               in the port) and, on the wgmma route, the WMMA kernel's time
   4. serve   — flagship ERB generator from seed 0 -> 8-bit .rnvb -> decode_main
                (32 frames, batch 8) in f32 and bf16; launch count, frames vs
                the plain path, fps of both paths
@@ -35,13 +40,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                finetune epoch), QAT (1 epoch); then decode_main --decode_int8
                serves the .rnvb: 2 K1 + 2 K2 launches per batch, frames vs
                the plain path, fps of the int8, bf16 and plain paths
-The last line is {"ok": true, "device": {...}}.  Needs no network; imports
-no JAX.
+Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
+and ``library_ms`` (null where no single PyTorch call computes the kernel's
+heavy part).  The last line is {"ok": true, "device": {...}}.  Needs no
+network; imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import json
 import os
@@ -56,7 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repnerv_tpu_torch.cli import decode_main, eval_main, train_main
-from repnerv_tpu_torch.compress.bitstream import read_bitstream, write_state_bitstream
+from repnerv_tpu_torch.compress.bitstream import read_bitstream, write_bitstream
 from repnerv_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from repnerv_tpu_torch.data.frames import FrameStore, synthetic_video
 from repnerv_tpu_torch.kernels import build
@@ -137,6 +145,83 @@ def smi_name_power() -> str:
     return out[0]
 
 
+# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): operations per second by the unit a type can use, and bytes per
+# second of device memory.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def roofline(ops: float, nbytes: float, unit: str) -> dict:
+    """The least time the card could take for a piece of work:
+        bound_ms = max(ops / PEAK_OPS[unit], nbytes / PEAK_BYTES) * 1e3
+    ``ops`` counts the operations the function does on these inputs (2 per
+    multiply-add), ``nbytes`` each input read once and each output written
+    once, whatever a kernel reads again.  ``bound_by`` names the larger."""
+    ops_ms, bytes_ms = ops / PEAK_OPS[unit] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def sum_bounds(rows: list) -> dict:
+    """The bound of several calls: the sum of theirs; bound by what the
+    larger share of that sum is bound by."""
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    total = sum(r["bound_ms"] for r in rows)
+    return {"bound_ms": total, "bound_by": "operations" if by_ops >= total - by_ops else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def stage_ops(bsz: int, h: int, w: int, cin: int, c: int, s: int, c_final: int) -> float:
+    """FLOPs of one fused stage: the 3x3 conv (2 * 9 * Cin * Cout per low-res
+    pixel) and the 1x1 head (2 * C * c_final per output pixel)."""
+    return 2.0 * bsz * h * w * s * s * c * (9 * cin + c_final)
+
+
+def conv_library_ms(x: torch.Tensor, p, tf32: bool = False) -> float:
+    """The library yardstick of a stage: one ``F.conv2d`` (cuDNN) of the same
+    shape in the stage's type, bf16 in channels_last, f32 with TF32 as said.
+    It leaves out the bias, shuffle, activation and head that the kernel also
+    does.  The port never calls it."""
+    cin = x.shape[-1]
+    xn = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+    wk = p.w.reshape(3, 3, cin, -1).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        return cuda_ms(lambda: F.conv2d(xn, wk, padding=1))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def wmma_ms(x: torch.Tensor, p, out: torch.Tensor, z=None) -> float:
+    """The time of the WMMA kernel (route 1 of csrc/decode.cu) at a shape
+    that the port sends to the wgmma kernel: the time before the redesign,
+    read in the same run.  A measurement of this script only; the port's
+    wrappers take no route."""
+    lib = build.load_library()
+    ptr = ctypes.c_void_p
+    bsz, h, w, cin = x.shape
+    entry = lib.repnerv_fused_conv_ps_act if z is None else lib.repnerv_train_stage_fwd
+    args = [dk.ROUTES.index("wmma"), ptr(x.data_ptr()), ptr(p.w.data_ptr()), ptr(None),
+            ptr(p.b.data_ptr()), ptr(p.head_w.data_ptr() if p.c_final else None),
+            ptr(p.head_b.data_ptr() if p.c_final else None), ptr(out.data_ptr())]
+    if z is not None:
+        args.append(ptr(z.data_ptr()))
+    args += [bsz, h, w, cin, p.c, p.stride, dk.ACT_CODES["swish"], p.c_final, 0]
+
+    def run():
+        err = entry(*args, ptr(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"WMMA kernel launch failed: cudaError {err}")
+
+    return cuda_ms(run)
+
+
 def cuda_ms(fn, reps: int = 10) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()`` after one warm-up."""
     fn()
@@ -174,6 +259,51 @@ def phase_build() -> None:
         for line in f:
             if "registers" in line or "spill" in line:
                 log(f"[build] ptxas: {line.strip()}")
+    # does the library hold wgmma instructions (HGMMA in SASS)?
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    try:
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        log(f"[build] SASS of {os.path.basename(so)}: {sass.count('HGMMA')} HGMMA instructions, "
+            f"{sass.count('UTMALDG')} UTMALDG (TMA loads)")
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"[build] SASS not inspected ({type(e).__name__}: {e})")
+
+
+def stage_yardsticks(x: torch.Tensor, p, out: torch.Tensor, z=None) -> dict:
+    """Bound, library time and (on the wgmma route) the WMMA kernel's time
+    of one stage call.  Bound: the conv's and the head's FLOPs on the unit
+    the type can use (bf16 tensor cores; f32 the FMA pipes, and beside it
+    what a 3xTF32 tensor-core design would be bound by: 3 x FLOPs / 495
+    TFLOP/s) against x, the weights, the bias, the head and every output
+    crossing device memory once."""
+    bsz, h, w, cin = x.shape
+    ops = stage_ops(bsz, h, w, cin, p.c, p.stride, p.c_final)
+    moved = nbytes(x, p.w, p.b, p.head_w, p.head_b, out, z)
+    if x.dtype == torch.bfloat16:
+        row = roofline(ops, moved, "bf16")
+        row["library_ms"] = conv_library_ms(x, p)
+        if p.route == "wgmma":
+            row["wmma_ms"] = wmma_ms(x, p, torch.empty_like(out),
+                                     None if z is None else torch.empty_like(z))
+    else:
+        row = roofline(ops, moved, "f32")
+        row["bound_3xtf32_ms"] = max(3 * ops / PEAK_OPS["tf32"] * 1e3, row["bytes_ms"])
+        row["library_ms"] = conv_library_ms(x, p, tf32=False)  # the same function: exact f32
+        row["library_tf32_ms"] = conv_library_ms(x, p, tf32=True)
+    return row
+
+
+def yardstick_text(row: dict) -> str:
+    text = f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})"
+    if "bound_3xtf32_ms" in row:
+        text += f" / 3xTF32 {row['bound_3xtf32_ms']:.3f}"
+    text += f", F.conv2d {row['library_ms']:.3f} ms"
+    if "library_tf32_ms" in row:
+        text += f" (TF32 on {row['library_tf32_ms']:.3f})"
+    if "wmma_ms" in row:
+        text += f", WMMA kernel {row['wmma_ms']:.3f} ms"
+    return text
 
 
 def phase_kernel() -> dict:
@@ -212,17 +342,18 @@ def phase_kernel() -> dict:
             ok = ok and bool(torch.isfinite(out).all())
             ms = cuda_ms(lambda: dk.decode_stage(xin, p, "swish", "tanh"))
             plain_ms = cuda_ms(lambda: dk.decode_stage_reference(xin, p, "swish", "tanh"))
+            row = {"shape": name, "dtype": dname, "route": p.route, "max_abs_err": err,
+                   "tol": tol, "ms": ms, "plain_ms": plain_ms}
+            row.update(stage_yardsticks(xin, p, out))
             log(
                 f"[kernel] {dname:8s} {name:12s} x[{SERVE_BATCH},{h},{w},{cin}] s={s} "
-                f"-> {list(out.shape)}: max|d|={err:.3e} (tol {tol}) "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}"
+                f"-> {list(out.shape)}: max|d|={err:.3e} (tol {tol}) {p.route} "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {yardstick_text(row)} "
+                f"{'ok' if ok else 'FAIL'}"
             )
             if not ok:
                 raise AssertionError(f"kernel disagrees with its plain version at {name} {dname}")
-            rows.append(
-                {"shape": name, "dtype": dname, "max_abs_err": err, "tol": tol,
-                 "ms": ms, "plain_ms": plain_ms}
-            )
+            rows.append(row)
             del x, xin, out, ref, diff
         results[dname] = rows
     torch.cuda.empty_cache()
@@ -241,16 +372,23 @@ def phase_serve(tmp: str) -> dict:
     for dtype in ("float32", "bfloat16"):
         path = os.path.join(tmp, f"flagship_{dtype}.rnvb")
         mcfg = dataclasses.replace(cfg, compute_dtype=dtype)
-        acct = write_state_bitstream(path, state, mcfg, quant_bit=8)
+        acct = write_bitstream(path, state, mcfg, quant_bit=8)
         log(f"[serve] wrote {os.path.basename(path)}: {int(acct['file_bytes'])} bytes")
 
-        dk.LAUNCHES = 0  # the main path's run starts here
+        reset_counts()  # the main path's run starts here
         res = decode_main.main([path, "--frames", str(SERVE_FRAMES), "--batch", str(SERVE_BATCH)])
-        launches = dk.LAUNCHES  # ... and ends here
-        expected = 4 * n_batches * (1 + DECODE_REPS)
-        log(f"[serve] {dtype}: decode_main -> {res}; kernel launches {launches} (expect {expected})")
+        launches, routes = dk.LAUNCHES, dict(dk.ROUTE_LAUNCHES)  # ... and ends here
+        passes = n_batches * (1 + DECODE_REPS)
+        expected = 4 * passes
+        # bf16: blocks 2-4 (Cin 96) on the wgmma kernel, block 1 (Cin 26) on WMMA
+        want = ({"fma": 0, "wmma": passes, "wgmma": 3 * passes} if dtype == "bfloat16"
+                else {"fma": expected, "wmma": 0, "wgmma": 0})
+        log(f"[serve] {dtype}: decode_main -> {res}; kernel launches {launches} (expect "
+            f"{expected}), by route {routes} (expect {want})")
         if launches != expected:
             raise AssertionError(f"expected {expected} kernel launches (4 per batch), got {launches}")
+        if routes != want:
+            raise AssertionError(f"{dtype}: K1 launches by route {routes}, expected {want}")
 
         st, acfg, _ = read_bitstream(path)
         model = decode_main.serving_model(st, acfg, dev)
@@ -278,9 +416,12 @@ def phase_serve(tmp: str) -> dict:
         plain_fps = measure_decode_fps(
             plain, TrainConfig(model=plain_cfg), np.arange(SERVE_FRAMES) / SERVE_FRAMES, SERVE_BATCH
         )
-        log(f"[serve] {dtype}: fps kernel path {res['fps']:.2f}, plain path {plain_fps:.2f}")
+        log(f"[serve] {dtype}: fps kernel path {res['fps']:.2f} ({1e3 * SERVE_BATCH / res['fps']:.3f} "
+            f"ms per batch of {SERVE_BATCH}), plain path {plain_fps:.2f}")
         out[dtype] = {
-            "launches": launches, "fps": res["fps"], "plain_fps": plain_fps,
+            "launches": launches, "route_launches": routes, "fps": res["fps"],
+            "plain_fps": plain_fps, "batch_ms": 1e3 * SERVE_BATCH / res["fps"],
+            "breakdown": decode_breakdown(model, t),
             "frames_max_abs_err": err, "frames_mean_abs_err": mean_err,
         }
         del model, plain
@@ -341,13 +482,16 @@ def phase_train_kernels() -> dict:
             ok = ok and bool(torch.isfinite(out).all()) and bool(torch.isfinite(z).all())
             ms = cuda_ms(lambda: tt.stage_forward(x, p, "swish", "tanh"))
             plain_ms = cuda_ms(lambda: tt.stage_forward_reference(x, p, "swish", "tanh"))
+            row = {"shape": name, "dtype": dname, "route": p.route, "max_abs_err": err,
+                   "tol": tol, "ms": ms, "plain_ms": plain_ms}
+            row.update(stage_yardsticks(x, p, out, z))
             log(f"[train-kernels] K3 {dname:8s} {name:12s} x[1,{h},{w},{cin}] -> out "
-                f"{list(out.shape)} z {list(z.shape)}: max|d|={err:.3e} (tol {tol}) "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+                f"{list(out.shape)} z {list(z.shape)}: max|d|={err:.3e} (tol {tol}) {p.route} "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {yardstick_text(row)} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K3 disagrees with its plain version at {name} {dname}")
-            rows["K3"].append({"shape": name, "dtype": dname, "max_abs_err": err, "tol": tol,
-                               "ms": ms, "plain_ms": plain_ms})
+            rows["K3"].append(row)
             # K4 on this stage's z and a cotangent of its output
             ct = torch.randn(out.shape, generator=g).to(dev).to(out.dtype).contiguous()
             args = (z, ct, out if head else None, p.head_w, s, "swish", "tanh")
@@ -365,15 +509,22 @@ def phase_train_kernels() -> dict:
                 "; partials 1e-4 x max|ref|"
             ms = cuda_ms(lambda: tt.epilogue_backward(*args))
             plain_ms = cuda_ms(lambda: tt.epilogue_backward_reference(*args))
+            # bound: z, the cotangent and (head) the output and head weight
+            # read once, d_conv and the summed gradients written once; per z
+            # element ~10 FLOPs of activation derivative and, with a head, 4
+            # per head output (d_a and dW products), on the FMA pipes
+            k4_bound = roofline(z.numel() * (10.0 + 4 * p.c_final),
+                                nbytes(z, ct, out if head else None, p.head_w, *got), "f32")
             log(f"[train-kernels] K4 {dname:8s} {name:12s} z {list(z.shape)} -> d_conv "
                 f"{list(got[0].shape)}: d_conv max|d|={err:.3e}, partials max|d|/max|ref|="
-                f"{part_rel:.3e} (tol {tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                f"{part_rel:.3e} (tol {tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {k4_bound['bound_ms']:.3f} ms ({k4_bound['bound_by']}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K4 disagrees with its plain version at {name} {dname}")
             rows["K4"].append({"shape": name, "dtype": dname, "max_abs_err": err,
                                "partials_rel_err": part_rel, "tol": tol, "ms": ms,
-                               "plain_ms": plain_ms})
+                               "plain_ms": plain_ms, **k4_bound})
             del x, out, z, ref_out, ref_z, ct, got, ref, args
             torch.cuda.empty_cache()
     win = sb.window_tuple(11, 1.5)
@@ -392,9 +543,17 @@ def phase_train_kernels() -> dict:
         plain_ms = cuda_ms(lambda: sb.blur_valid_reference(x, win))
         vjp_ms = cuda_ms(lambda: sb.blur_valid(ctp, win)) if n_vjp else 0.0
         vjp_plain_ms = cuda_ms(lambda: sb.blur_valid_reference(ctp, win)) if n_vjp else 0.0
+        # bound of one blur: the image read and the blurred image written
+        # once; 2 x 11 FLOPs per element of the row pass and of the column pass
+        fwd_bound = roofline(22.0 * (x.shape[0] * x.shape[1] * out.shape[2] + out.numel()),
+                             nbytes(x, out), "f32")
+        vjp_bound = roofline(22.0 * (ctp.shape[0] * ctp.shape[1] * dx.shape[2] + dx.numel()),
+                             nbytes(ctp, dx), "f32")
+        k5_bound = sum_bounds([fwd_bound] * n_fwd + [vjp_bound] * n_vjp)
         log(f"[train-kernels] K5 float32  {name:12s} {list(shape)} -> {list(out.shape)}: "
             f"max|d|={err:.3e} (tol 0, bitwise) kernel {ms:.3f} ms (VJP {vjp_ms:.3f}), plain "
-            f"{plain_ms:.3f} ms (VJP {vjp_plain_ms:.3f}) {'ok' if ok else 'FAIL'}")
+            f"{plain_ms:.3f} ms (VJP {vjp_plain_ms:.3f}), bound of one blur "
+            f"{fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K5 disagrees with its plain version at {name}")
         rows["K5"].append({
@@ -403,6 +562,8 @@ def phase_train_kernels() -> dict:
             # this shape's share of one training step's blurs
             "step_ms": n_fwd * ms + n_vjp * vjp_ms,
             "step_plain_ms": n_fwd * plain_ms + n_vjp * vjp_plain_ms,
+            "calls_per_step": n_fwd + n_vjp,
+            **k5_bound,  # of this shape's calls of one step
         })
     return rows
 
@@ -414,6 +575,9 @@ def launch_counts() -> dict:
 
 def reset_counts() -> None:
     dk.LAUNCHES = k8.LAUNCHES = tt.FWD_LAUNCHES = tt.BWD_LAUNCHES = sb.LAUNCHES = 0
+    for routes in (dk.ROUTE_LAUNCHES, tt.FWD_ROUTE_LAUNCHES):
+        for r in routes:
+            routes[r] = 0
 
 
 def _train_cfg(dtype: str, use_kernel: bool) -> TrainConfig:
@@ -459,7 +623,8 @@ def one_step_grads(dtype: str, use_kernel: bool, store: FrameStore):
 
 # kernel-name fragments -> the group a profiled CUDA kernel counts under
 PROFILE_GROUPS = [
-    ("K3 stage forward", ("tensor_core::kernel", "cuda_core::kernel")),
+    ("K1/K3 stage forward", ("stage_wgmma", "tensor_core::kernel", "cuda_core::kernel")),
+    ("K2 int8 stage", ("int8",)),
     ("K4 epilogue backward", ("epilogue_bwd",)),
     ("K5 SSIM blur", ("blur_valid",)),
     ("cuDNN conv (stage 0, dX/dW)", ("conv", "cudnn", "xmma", "implicit_gemm", "wgrad",
@@ -468,19 +633,15 @@ PROFILE_GROUPS = [
 ]
 
 
-def step_breakdown(dtype: str, use_kernel: bool, store: FrameStore, n_steps: int = 3) -> dict:
-    """Device time of each kernel group per step, from a torch.profiler
-    trace of ``n_steps`` steps after a warm-up step."""
+def profile_groups(run, n_iters: int) -> dict:
+    """Device time of each kernel group per iteration, from a torch.profiler
+    trace of ``n_iters`` calls of ``run(i)``."""
     from torch.profiler import ProfilerActivity, profile
 
-    state, step, t_all = _step_setup(dtype, use_kernel, store)
-    rows = torch.zeros(1, dtype=torch.long, device="cuda")
-    state, _ = step(state, store.gather(rows), t_all[rows])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n_steps):
-            r = rows + i + 1
-            state, _ = step(state, store.gather(r), t_all[r])
+        for i in range(n_iters):
+            run(i)
         torch.cuda.synchronize()
     groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
     groups["other (elementwise, SSIM maps, stem, fusion)"] = 0.0
@@ -502,8 +663,45 @@ def step_breakdown(dtype: str, use_kernel: bool, store: FrameStore, n_steps: int
                 break
         else:
             groups["other (elementwise, SSIM maps, stem, fusion)"] += us
-    return {"groups_ms": {k: v / 1e3 / n_steps for k, v in groups.items()},
-            "device_ms": total / 1e3 / n_steps, "kernels_per_step": n_kernels / n_steps}
+    return {"groups_ms": {k: v / 1e3 / n_iters for k, v in groups.items() if v},
+            "device_ms": total / 1e3 / n_iters, "kernels_per_step": n_kernels / n_iters}
+
+
+def step_breakdown(dtype: str, use_kernel: bool, store: FrameStore, n_steps: int = 3) -> dict:
+    """``profile_groups`` of ``n_steps`` training steps after a warm-up step."""
+    state, step, t_all = _step_setup(dtype, use_kernel, store)
+    rows = torch.zeros(1, dtype=torch.long, device="cuda")
+    state, _ = step(state, store.gather(rows), t_all[rows])
+
+    def run(i):
+        nonlocal state
+        r = rows + i + 1
+        state, _ = step(state, store.gather(r), t_all[r])
+
+    return profile_groups(run, n_steps)
+
+
+def decode_breakdown(model, t: torch.Tensor, n_batches: int = 3) -> dict:
+    """``profile_groups`` of ``n_batches`` decoded batches, and the device's
+    idle share of a batch (CUDA-event time of the same batches, unprofiled).
+    Empty when the profiler cannot trace the card."""
+    decode = make_decode_fn(TrainConfig(model=model.cfg))
+    decode(model, t)
+    try:
+        bd = profile_groups(lambda i: decode(model, t), n_batches)
+    except RuntimeError as e:
+        log(f"[serve] decode breakdown not measured ({e})")
+        return {}
+    if not bd["device_ms"]:
+        log("[serve] decode breakdown not measured (no device time)")
+        return {}
+    bd["batch_ms"] = cuda_ms(lambda: decode(model, t))
+    bd["idle_share"] = max(0.0, 1 - bd["device_ms"] / bd["batch_ms"])
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in bd["groups_ms"].items())
+    log(f"[serve] {model.cfg.compute_dtype}: one batch of {t.numel()} frames, device ms from "
+        f"torch.profiler: {parts}; device total {bd['device_ms']:.3f} of {bd['batch_ms']:.3f} ms "
+        f"(idle share {bd['idle_share']:.3f}); {bd['kernels_per_step']:.0f} kernels per batch")
+    return bd
 
 
 def phase_train(tmp: str) -> dict:
@@ -532,6 +730,7 @@ def phase_train(tmp: str) -> dict:
                 res = train_main.main(TRAIN_ARGV + ["--compute_dtype", dtype, "--outf", dtype])
                 wall = time.perf_counter() - t0
                 counts = launch_counts()  # ... and ends here
+                routes = dict(tt.FWD_ROUTE_LAUNCHES)
                 outf = os.path.abspath(res["outf"])
             finally:
                 os.chdir(cwd)
@@ -548,6 +747,12 @@ def phase_train(tmp: str) -> dict:
                 if eval_counts.get(k, 0) != PER_EVAL_FRAME[k] * n_eval:
                     raise AssertionError(f"{k}: {eval_counts.get(k, 0)} launches in the eval of "
                                          f"{n_eval} frames, expected {PER_EVAL_FRAME[k]} each")
+            # bf16: blocks 2-4 (Cin 96) on the wgmma kernel, block 1 (Cin 26) on WMMA
+            want = ({"fma": 0, "wmma": steps, "wgmma": 3 * steps} if dtype == "bfloat16"
+                    else {"fma": 4 * steps, "wmma": 0, "wgmma": 0})
+            log(f"[train] {dtype}: K3 launches by route {routes} (expect {want})")
+            if routes != want:
+                raise AssertionError(f"{dtype}: K3 launches by route {routes}, expected {want}")
             hist = res["history"]
             for h in hist:
                 log(f"[train] {dtype}: epoch {h['epoch']} loss {h['loss']:.6f} lr {h['lr']:.3e} "
@@ -560,6 +765,7 @@ def phase_train(tmp: str) -> dict:
                 if not os.path.exists(os.path.join(outf, name)):
                     raise AssertionError(f"train_main wrote no {name}")
             results[dtype] = {"launches": counts, "train_launches": train_counts,
+                              "route_launches": routes,
                               "eval_launches": dict(eval_counts), "history": hist,
                               "wall_s": wall}
             del res
@@ -681,15 +887,20 @@ def phase_int8_kernel() -> list:
             ok = err <= 1 and frac < INT8_FRAC
         ms = cuda_ms(lambda: k8.decode_stage_int8(x_q, p, "swish", "tanh"))
         plain_ms = cuda_ms(lambda: k8.decode_stage_int8_reference(x_q, p, "swish", "tanh"))
+        # bound: the conv's operations on the int8 tensor cores (the head's
+        # f32 product is 0.3% of them) against the int8 input, the weights
+        # and the output crossing device memory once
+        bound = roofline(stage_ops(SERVE_BATCH, h, w, cin, c, s, 3 if head else 0),
+                         x_q.numel() + 9 * cin * cout + nbytes(out), "int8")
         log(f"[int8-kernel] {name:12s} x_q[{SERVE_BATCH},{h},{w},{cin}] s={s} -> "
             f"{list(out.shape)} {str(out.dtype).replace('torch.', '')}: max|d|={err:.3e}, "
-            f"share differing {frac:.3e} (tol {tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-            f"{'ok' if ok else 'FAIL'}")
+            f"share differing {frac:.3e} (tol {tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at {name}")
         rows.append({"shape": name, "in": [SERVE_BATCH, h, w, cin], "out": list(out.shape),
                      "max_abs_err": err, "share_differing": frac, "tol": tol,
-                     "ms": ms, "plain_ms": plain_ms})
+                     "ms": ms, "plain_ms": plain_ms, **bound})
         del x_q, out, ref, diff, p
         torch.cuda.empty_cache()
     return rows
@@ -848,8 +1059,29 @@ def main() -> None:
         train = phase_train(tmp)
         int8_rows = phase_int8_kernel()
         compress = phase_compress(tmp)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("the port imported jax")
+    for name in sys.modules:
+        if name.split(".")[0] in ("jax", "jaxlib", "repnerv_tpu"):
+            raise AssertionError(f"the port imported {name}")
+
+    def yardsticks(rows: list) -> dict:
+        """bound_ms / bound_by / library_ms of a kernel over its main-path rows."""
+        out = sum_bounds(rows)
+        for key in ("library_ms", "library_tf32_ms", "bound_3xtf32_ms", "wmma_ms"):
+            have = [r[key] for r in rows if key in r]
+            if have:
+                # wmma_ms: only the rows on the wgmma route have it
+                out[key if key != "wmma_ms" else "wgmma_rows_wmma_ms"] = sum(have)
+        out.setdefault("library_ms", None)
+        if "wgmma_rows_wmma_ms" in out:
+            out["wgmma_rows_ms"] = sum(r["ms"] for r in rows if "wmma_ms" in r)
+        return out
+
+    def stage_sources(dname: str) -> dict:
+        # bf16: blocks 2-4 run decode_wgmma.cu, block 1 (Cin 26) decode.cu's WMMA kernel
+        if dname == "bfloat16":
+            return {"source": "repnerv_tpu_torch/csrc/decode_wgmma.cu",
+                    "other_sources": ["repnerv_tpu_torch/csrc/decode.cu"]}
+        return {"source": "repnerv_tpu_torch/csrc/decode.cu"}
 
     kernels = []
     for dname, rows in kernel_rows.items():
@@ -857,13 +1089,15 @@ def main() -> None:
         kernels.append({
             "name": f"fused_conv_ps_act[{dname}]",
             "route": "cuda",
-            "source": "repnerv_tpu_torch/csrc/decode.cu",
+            **stage_sources(dname),
             "replaces": "repnerv_tpu/pallas_kernels/decode.py:79",
             "launches": serve[dname]["launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             # one batch of 8 frames through blocks 1-4 of the flagship
             "ms": sum(r["ms"] for r in main_rows),
             "plain_ms": sum(r["plain_ms"] for r in main_rows),
+            **yardsticks(main_rows),
+            "shape_routes": {r["shape"]: r["route"] for r in rows},
             "shapes": rows,
             "serve": serve[dname],
         })
@@ -876,13 +1110,15 @@ def main() -> None:
     for key, (fn, src, replaces) in sources.items():
         for dname in ("float32", "bfloat16"):
             rows = [r for r in train_rows[key] if r["dtype"] == dname]
+            srcs = stage_sources(dname) if key == "K3" else {"source": src}
             kernels.append({
-                "name": f"{fn}[{dname}]", "route": "cuda", "source": src, "replaces": replaces,
+                "name": f"{fn}[{dname}]", "route": "cuda", **srcs, "replaces": replaces,
                 "launches": train[dname]["launches"][key],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 # blocks 1-4 of one -b 1 flagship training step
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
+                **yardsticks(rows),
                 "shapes": rows,
             })
     rows = train_rows["K5"]
@@ -895,6 +1131,7 @@ def main() -> None:
         # the 33 blurs of one training step (loss forward + VJP, MS-SSIM metric)
         "ms": sum(r["step_ms"] for r in rows),
         "plain_ms": sum(r["step_plain_ms"] for r in rows),
+        **yardsticks(rows),
         "shapes": rows,
     })
     main_rows = [r for r in int8_rows if r["shape"] in INT8_MAIN_PATH_SHAPES]
@@ -908,9 +1145,18 @@ def main() -> None:
         # one batch of 8 frames through blocks 3-4 + head of the flagship
         "ms": sum(r["ms"] for r in main_rows),
         "plain_ms": sum(r["plain_ms"] for r in main_rows),
+        **yardsticks(main_rows),
         "shapes": int8_rows,
         "serve": compress["serve_int8"],
     })
+    for k in kernels:
+        share = k["bound_ms"] / k["ms"]
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.3f} ms"
+        log(f"[kernels] {k['name']}: {k['ms']:.3f} ms, bound {k['bound_ms']:.3f} ms by "
+            f"{k['bound_by']} ({share:.1%} of it reached), plain {k['plain_ms']:.3f} ms, "
+            f"library {lib}, launches {k['launches']}"
+            + (f"; rows on the wgmma route {k['wgmma_rows_ms']:.3f} ms, the WMMA kernel on the "
+               f"same rows {k['wgmma_rows_wmma_ms']:.3f} ms" if "wgmma_rows_ms" in k else ""))
     log("[train] summary " + json.dumps(train))
     log("[compress] summary " + json.dumps(compress))
     print(json.dumps({"kernels": kernels}))

@@ -33,8 +33,6 @@ import time
 import numpy as np
 import torch
 
-from repnerv_tpu.cli.args import args_to_config, build_parser
-
 from ..compress.bitstream import read_bitstream
 from ..compress.pipeline import (
     CompressionReport,
@@ -57,6 +55,7 @@ from ..train.loop import (
     measure_decode_fps,
 )
 from ..utils.costs import generator_macs
+from .args import args_to_config, build_parser
 
 
 def select_checkpoint(cfg: TrainConfig, outf: str, qat: bool = False):

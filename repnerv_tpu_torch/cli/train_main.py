@@ -31,8 +31,6 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from repnerv_tpu.cli.args import args_to_config, build_parser, exp_id
-
 from ..config import TrainConfig
 from ..data.frames import make_frame_store
 from ..models.generator import generator_to_deploy, param_count
@@ -48,6 +46,7 @@ from ..train.loop import (
 )
 from ..train.recovery import DivergenceGuard, snapshot
 from ..utils.costs import generator_macs
+from .args import args_to_config, build_parser, exp_id
 
 
 def log_line(outf: str, rank: int, msg: str):

@@ -43,17 +43,17 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 from torch import nn
 
-from repnerv_tpu.compress.bitstream import all_in_bpp, write_bitstream
-from repnerv_tpu.compress.huffman import bits_per_pixel, entropy_stats
-from repnerv_tpu.compress.quantize import quantize_state
-
 from ..config import TrainConfig
 from ..data.frames import FrameStore
 from ..models.generator import Generator, generator_to_deploy
 from ..train.checkpoint import load_state
 from ..train.loop import Masks, TrainState, make_optimizer, make_train_step, run_epoch
+from .bitstream import all_in_bpp, write_bitstream
+from .huffman import bits_per_pixel, entropy_stats
 from .prune import apply_masks, global_l1_masks, verify_ratio
 from .qat import make_fake_quant
+from .quantize import quantize_state
+from .rans import entropy_stats_rans
 
 
 @dataclass
@@ -149,8 +149,6 @@ def quantize_params(
     if not skip_entropy:
         codes = np.concatenate(nonzero_codes) if nonzero_codes else np.zeros(0)
         if cfg.codec == "rans":
-            from repnerv_tpu.compress.rans import entropy_stats_rans
-
             stats = entropy_stats_rans(codes, cfg.quant_bit)
         else:
             stats = entropy_stats(codes, cfg.quant_bit)

@@ -22,8 +22,11 @@
 //
 // What bounds it: at the 720p stage 4 shape (360x640x96 -> 720x1280x96) the
 // conv is ~2,800 FLOP per byte of device memory moved, so the kernel is
-// compute-bound: the tensor cores for bf16, the FMA pipes for f32.  Both
-// kernels here are plain shared-memory implicit GEMMs (no TMA, no wgmma, no
+// compute-bound: the tensor cores for bf16, the FMA pipes for f32.  bf16
+// stages whose channel counts allow it run the wgmma + TMA kernel of
+// decode_wgmma.cu (route 2 below); the two kernels here take f32 and the
+// remaining bf16 shapes (Cin or C not a multiple of 8, C above 96, a head wider
+// than 4).  Both are plain shared-memory implicit GEMMs (no TMA, no wgmma, no
 // warp specialisation): one block computes BM output pixels x one chunk of
 // one sub-pixel's channels, stepping over K one tap and one slice of input
 // channels at a time, with the next slices' loads in flight during the math.
@@ -450,47 +453,54 @@ cudaError_t launch_tc_vec(const void* x, const void* w, const float* b, const fl
 }
 
 // z == nullptr: decode (no pre-activation store); else the training forward.
-int launch_stage(int dtype, const void* x, const void* w, const float* b,
+// The caller names the route (kernels/decode.py::stage_route); a route that
+// cannot take the shape is an error, never another kernel.
+int launch_stage(int route, const void* x, const void* w, const void* wt, const float* b,
                  const float* head_w, const float* head_b, void* out, void* z, int B,
                  int H, int W, int Cin, int C, int s, int act, int c_final,
                  int sigmoid_squash, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 2)
+    return repnerv::launch_stage_wgmma(x, wt, b, head_w, head_b, out, z, B, H, W, Cin, C, s, act,
+                                       c_final, sigmoid_squash, st);
   Stage stage{B, H, W, Cin, C, s, act, c_final, sigmoid_squash, 1, 1};
-  if (dtype == 0) {
+  if (route == 0) {
     // the smallest channel tile that holds C (the flagship's C = 96 fills one
     // 96-wide tile); wider C walks 96-wide chunks
     if (C <= 32) return launch_fma<32>(x, w, b, head_w, head_b, out, z, stage, st);
     if (C <= 64) return launch_fma<64>(x, w, b, head_w, head_b, out, z, stage, st);
     return launch_fma<96>(x, w, b, head_w, head_b, out, z, stage, st);
   }
-  if (dtype == 1 && c_final > 0)
+  if (route == 1 && c_final > 0)
     return launch_tc_vec<float>(x, w, b, head_w, head_b, out, z, stage, st);
-  if (dtype == 1) return launch_tc_vec<bf16>(x, w, b, head_w, head_b, out, z, stage, st);
+  if (route == 1) return launch_tc_vec<bf16>(x, w, b, head_w, head_b, out, z, stage, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and w).  c_final = 0: no head, out in the
-// compute dtype; c_final > 0: fused head, out float32.  Returns the cudaError_t
-// of the launch.
-extern "C" int repnerv_fused_conv_ps_act(int dtype, const void* x, const void* w,
-                                         const float* b, const float* head_w,
-                                         const float* head_b, void* out, int B, int H,
-                                         int W, int Cin, int C, int s, int act,
+// route: 0 = float32 on the FMA pipes, 1 = bfloat16 WMMA, 2 = bfloat16 wgmma +
+// TMA (x and w in that type).  w is the operand [9*Cin, Cout] of routes 0 and
+// 1, wt its K-major copy [Cout, 9*Cin] of route 2; the other may be null.
+// c_final = 0: no head, out in the compute dtype; c_final > 0: fused head, out
+// float32.  Returns the cudaError_t of the launch.
+extern "C" int repnerv_fused_conv_ps_act(int route, const void* x, const void* w,
+                                         const void* wt, const float* b,
+                                         const float* head_w, const float* head_b, void* out,
+                                         int B, int H, int W, int Cin, int C, int s, int act,
                                          int c_final, int sigmoid_squash, void* stream) {
-  return launch_stage(dtype, x, w, b, head_w, head_b, out, nullptr, B, H, W, Cin, C, s, act,
-                      c_final, sigmoid_squash, stream);
+  return launch_stage(route, x, w, wt, b, head_w, head_b, out, nullptr, B, H, W, Cin, C, s,
+                      act, c_final, sigmoid_squash, stream);
 }
 
 // The training forward: as repnerv_fused_conv_ps_act, and also z [B, H*s, W*s, C]
 // (the pre-activation, compute dtype).
-extern "C" int repnerv_train_stage_fwd(int dtype, const void* x, const void* w,
-                                       const float* b, const float* head_w,
+extern "C" int repnerv_train_stage_fwd(int route, const void* x, const void* w,
+                                       const void* wt, const float* b, const float* head_w,
                                        const float* head_b, void* out, void* z, int B, int H,
                                        int W, int Cin, int C, int s, int act, int c_final,
                                        int sigmoid_squash, void* stream) {
   if (z == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_stage(dtype, x, w, b, head_w, head_b, out, z, B, H, W, Cin, C, s, act,
+  return launch_stage(route, x, w, wt, b, head_w, head_b, out, z, B, H, W, Cin, C, s, act,
                       c_final, sigmoid_squash, stream);
 }

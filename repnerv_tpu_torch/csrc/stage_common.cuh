@@ -1,6 +1,6 @@
-// What the fused decode-stage kernels (decode.cu, decode_int8.cu) share: the
-// problem description, the index arithmetic of the SAME halo and of the
-// pixel-shuffled store, and the launch grid.
+// What the fused decode-stage kernels (decode.cu, decode_wgmma.cu,
+// decode_int8.cu) share: the problem description, the index arithmetic of the
+// SAME halo and of the pixel-shuffled store, and the launch grid.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,5 +43,11 @@ inline dim3 grid_for(Stage& st, int bm, int bn) {
   const long long M = (long long)st.B * st.H * st.W;
   return dim3((unsigned)((M + bm - 1) / bm), (unsigned)(st.s * st.s * st.chunk_groups));
 }
+
+// The wgmma + TMA bf16 stage kernel (decode_wgmma.cu); returns the cudaError_t.
+int launch_stage_wgmma(const void* x, const void* wt, const float* b, const float* head_w,
+                       const float* head_b, void* out, void* z, int B, int H, int W, int Cin,
+                       int C, int s, int act, int c_final, int sigmoid_squash,
+                       cudaStream_t stream);
 
 }  // namespace repnerv

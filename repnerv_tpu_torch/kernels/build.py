@@ -107,11 +107,11 @@ def load_library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            # dtype, x, w, b, head_w, head_b, out, B, H, W, Cin, C, s, act,
+            # route, x, w, wt, b, head_w, head_b, out, B, H, W, Cin, C, s, act,
             # c_final, sigmoid_squash, stream
-            lib.repnerv_fused_conv_ps_act.argtypes = [i, p, p, p, p, p, p, *[i] * 9, p]
+            lib.repnerv_fused_conv_ps_act.argtypes = [i, *[p] * 7, *[i] * 9, p]
             # ... the same with z after out
-            lib.repnerv_train_stage_fwd.argtypes = [i, p, p, p, p, p, p, p, *[i] * 9, p]
+            lib.repnerv_train_stage_fwd.argtypes = [i, *[p] * 8, *[i] * 9, p]
             # x_q, w_q, scale, bias, inv_out, head_w, head_b, out, B, H, W,
             # Cin, C, s, act, c_final, sigmoid_squash, stream
             lib.repnerv_fused_conv_ps_act_int8.argtypes = [*[p] * 8, *[i] * 9, p]

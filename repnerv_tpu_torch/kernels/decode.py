@@ -1,15 +1,20 @@
 """Fused decode stage: conv3x3 + bias + PixelShuffle + activation (+ 1x1 head
 + squash), the port of ``repnerv_tpu/pallas_kernels/decode.py``.
 
-On a CUDA tensor, ``decode_stage`` launches the hand-written Hopper kernel in
-``csrc/decode.cu`` and nothing else: a launch that fails raises.  On a CPU
-tensor it runs the plain PyTorch version, ``decode_stage_reference``, which
-the tests also hold the kernel and the JAX kernel against.
+On a CUDA tensor, ``decode_stage`` launches a hand-written Hopper kernel and
+nothing else: a launch that fails raises.  Which kernel is ``stage_route``'s
+answer, a pure function of the stage's type and channel counts: bf16 stages
+with Cin and C in multiples of 8 run the wgmma + TMA kernel of
+``csrc/decode_wgmma.cu``, the other bf16 shapes the WMMA kernel and f32 the
+FMA kernel of ``csrc/decode.cu``.  On a CPU tensor it runs the plain PyTorch
+version, ``decode_stage_reference``, which the tests also hold the kernel and
+the JAX kernel against.
 
 The weights go into the kernel's layout once (``pack_weights``): an
 implicit-GEMM operand [9*Cin, Cout] in the compute dtype whose columns are
 in shuffle-major order, so one sub-pixel's C channels are contiguous and
-pixel shuffle becomes the store's index arithmetic.  ``fused_conv_ps_act``
+pixel shuffle becomes the store's index arithmetic; stages on the wgmma route
+also get its K-major copy [Cout, 9*Cin].  ``fused_conv_ps_act``
 keeps the JAX function's signature and layouts (x NHWC, w HWIO in
 PixelShuffle channel order) and packs on every call.
 """
@@ -18,8 +23,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +35,12 @@ from .build import load_library
 
 # kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 LAUNCHES = 0
+# ... and the same launches by the route they took
+ROUTES = ("fma", "wmma", "wgmma")  # the index is the code csrc/decode.cu takes
+ROUTE_LAUNCHES: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+# what the wgmma kernel holds in registers and shared memory
+_WGMMA_MAX_C = 96
+_WGMMA_MAX_HEAD = 4
 
 # activation name -> the code csrc/decode.cu's apply_act switches on
 ACT_CODES = {
@@ -44,6 +56,18 @@ ACT_CODES = {
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
+
+
+def stage_route(dtype: torch.dtype, cin: int, c: int, stride: int, c_final: int) -> str:
+    """Which kernel a stage runs: ``"fma"`` (f32, CUDA cores), ``"wmma"`` or
+    ``"wgmma"`` (bf16).  The wgmma kernel loads its tiles by TMA, whose strides
+    are multiples of 16 bytes (Cin % 8 == 0); it stores channel pairs and
+    holds one sub-pixel's channels in one tile (C % 8 == 0, C <= 96) and a
+    head of at most 4 outputs; every stride takes it."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    fits = cin % 8 == 0 and c % 8 == 0 and 0 < c <= _WGMMA_MAX_C and c_final <= _WGMMA_MAX_HEAD
+    return "wgmma" if fits else "wmma"
 
 
 def shuffle_weight_permutation(cout: int, stride: int, device=None) -> torch.Tensor:
@@ -66,6 +90,15 @@ class PackedStage:
     stride: int
     head_w: Optional[torch.Tensor] = None  # [C, c_final] f32
     head_b: Optional[torch.Tensor] = None  # [c_final] f32
+    wt: Optional[torch.Tensor] = None  # [Cout, 9*Cin]: w transposed, on the wgmma route only
+
+    @property
+    def c_final(self) -> int:
+        return 0 if self.head_w is None else self.head_w.shape[1]
+
+    @property
+    def route(self) -> str:
+        return stage_route(self.w.dtype, self.cin, self.c, self.stride, self.c_final)
 
     @property
     def cin(self) -> int:
@@ -103,7 +136,10 @@ def pack_weights(
             if head_b is not None
             else torch.zeros(hw.shape[1], device=w.device)
         ).contiguous()
-    return PackedStage(w2, b2, stride, hw, hb)
+    p = PackedStage(w2, b2, stride, hw, hb)
+    if p.route != "wgmma":
+        return p
+    return dataclasses.replace(p, wt=w2.t().contiguous())
 
 
 @contextlib.contextmanager
@@ -159,8 +195,12 @@ def check_stage_args(
     (0 without a head)."""
     bsz, h, w, cin = x.shape
     s = p.stride
-    c_final = 0 if p.head_w is None else p.head_w.shape[1]
+    c_final = p.c_final
     tensors = [x, p.w, p.b] + ([p.head_w, p.head_b] if c_final else [])
+    if p.route == "wgmma":
+        if p.wt is None or p.wt.shape != (p.w.shape[1], p.w.shape[0]) or p.wt.dtype != p.w.dtype:
+            raise ValueError(f"{name}: the wgmma route needs the K-major weights (pack_weights)")
+        tensors.append(p.wt)
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: x and the packed weights must share a device")
     if x.dtype != p.w.dtype or x.dtype not in _DTYPE_CODES:
@@ -195,8 +235,9 @@ def decode_stage(
     out = torch.empty(bsz, h * s, w * s, c_final or p.c, device=x.device, dtype=out_dtype)
     if out.numel() == 0:
         return out
-    launch_stage_kernel(x, p, act, out_squash, out)
+    route = launch_stage_kernel(x, p, act, out_squash, out)
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -207,12 +248,13 @@ def launch_stage_kernel(
     out_squash: str,
     out: torch.Tensor,
     z: Optional[torch.Tensor] = None,
-) -> None:
-    """Launch the stage kernel of ``csrc/decode.cu`` on checked CUDA inputs:
+) -> str:
+    """Launch the stage kernel that ``p.route`` names on checked CUDA inputs:
     the decode stage, or with ``z`` the training forward, which also stores
-    the pre-activation there.  A refused launch raises."""
+    the pre-activation there.  A refused launch raises.  Returns the route."""
     bsz, h, w, cin = x.shape
-    c_final = 0 if p.head_w is None else p.head_w.shape[1]
+    c_final = p.c_final
+    route = p.route
     sizes = [x.numel(), p.w.numel(), out.numel()] + ([z.numel()] if z is not None else [])
     if max(sizes) > _INT32_MAX:
         raise ValueError("stage kernel: tensors must hold fewer than 2**31 elements")
@@ -221,6 +263,7 @@ def launch_stage_kernel(
     pointers = [
         ptr(x.data_ptr()),
         ptr(p.w.data_ptr()),
+        ptr(p.wt.data_ptr() if route == "wgmma" else None),
         ptr(p.b.data_ptr()),
         ptr(p.head_w.data_ptr() if c_final else None),
         ptr(p.head_b.data_ptr() if c_final else None),
@@ -233,7 +276,7 @@ def launch_stage_kernel(
         pointers.append(ptr(z.data_ptr()))
     with torch.cuda.device(x.device):  # the runtime launches on the current device
         err = entry(
-            _DTYPE_CODES[x.dtype],
+            ROUTES.index(route),
             *pointers,
             bsz, h, w, cin, p.c, p.stride,
             ACT_CODES[act],
@@ -242,7 +285,8 @@ def launch_stage_kernel(
             ptr(torch.cuda.current_stream(x.device).cuda_stream),
         )
     if err != 0:
-        raise RuntimeError(f"stage kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"stage kernel ({route}) launch failed: cudaError {err}")
+    return route
 
 
 def fused_conv_ps_act(

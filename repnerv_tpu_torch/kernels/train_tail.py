@@ -5,8 +5,8 @@ squash] with its backward, the port of
 Two kernels, each behind a wrapper that launches it on a CUDA tensor and
 runs its plain PyTorch version on a CPU tensor:
 
-* ``stage_forward`` (K3): the decode kernel (``csrc/decode.cu``) with one
-  more store, the pre-activation ``z`` [B, H*s, W*s, C] in the compute dtype
+* ``stage_forward`` (K3): the decode kernel (``csrc/decode.cu``, or
+  ``csrc/decode_wgmma.cu`` where ``stage_route`` says so) with one more store, the pre-activation ``z`` [B, H*s, W*s, C] in the compute dtype
   (the JAX kernel's z5 [B, H, s, W, s*C] is the same bytes).
 * ``epilogue_backward`` (K4, ``csrc/train_tail.cu``): from ``z``, the
   cotangent and (with a head) the squashed output to ``d_conv`` [B, H, W,
@@ -32,6 +32,7 @@ from .build import load_library
 from .decode import (
     ACT_CODES,
     PackedStage,
+    ROUTES,
     _DTYPE_CODES,
     _INT32_MAX,
     check_stage_args,
@@ -44,6 +45,7 @@ from .decode import (
 
 # kernel launches since the counts were last set to 0 (chip_smoke.py reads them)
 FWD_LAUNCHES = 0
+FWD_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)  # K3's launches by kernels.decode.stage_route
 BWD_LAUNCHES = 0
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -115,8 +117,9 @@ def stage_forward(
     z = torch.empty(bsz, h * s, w * s, c, device=x.device, dtype=x.dtype)
     if z.numel() == 0:
         return out, z
-    launch_stage_kernel(x, p, act, squash, out, z)
+    route = launch_stage_kernel(x, p, act, squash, out, z)
     FWD_LAUNCHES += 1
+    FWD_ROUTE_LAUNCHES[route] += 1
     return out, z
 
 

@@ -32,6 +32,7 @@ from repnerv_tpu.compress import pipeline as jpipe
 from repnerv_tpu.compress.prune import global_l1_masks as jax_masks
 from repnerv_tpu.compress.qat import make_fake_quant as jax_fake_quant
 from repnerv_tpu.compress.quantize import quantize_state
+from repnerv_tpu.config import TrainConfig
 from repnerv_tpu.data.frames import FrameStore as JStore
 from repnerv_tpu.data.frames import synthetic_video
 from repnerv_tpu.models.generator import generator_to_deploy, init_generator
@@ -40,11 +41,11 @@ from repnerv_tpu.train.checkpoint import params_to_torch_state
 from repnerv_tpu_torch.compress import pipeline as tpipe
 from repnerv_tpu_torch.compress.prune import global_l1_masks, sparsity_report
 from repnerv_tpu_torch.compress.qat import fake_quant_leaf, make_fake_quant
-from repnerv_tpu_torch.config import TrainConfig
 from repnerv_tpu_torch.data.frames import FrameStore
 from repnerv_tpu_torch.models.generator import Generator
 from repnerv_tpu_torch.train.checkpoint import load_state, state_from_jax_params
 from test_model_train import tiny_model
+from test_torch_config_codecs import port_model_cfg, port_train_cfg
 
 
 def _np(tree):
@@ -52,7 +53,8 @@ def _np(tree):
 
 
 def _model(params, cfg):
-    return load_state(Generator(cfg), state_from_jax_params(_np(params), cfg))
+    pcfg = port_model_cfg(cfg)  # the port takes its own config class
+    return load_state(Generator(pcfg), state_from_jax_params(_np(params), pcfg))
 
 
 def _params(branch_type, deploy, seed=0, **over):
@@ -81,7 +83,7 @@ def test_global_l1_masks_equal_jax(branch_type, deploy):
         lambda p, m: m if p is None or m is not None else np.full(p.shape, -1.0, np.float32),
         params, ref, is_leaf=lambda x: x is None,
     )
-    ref_named = {k: v for k, v in state_from_jax_params(_np(filled), cfg).items()
+    ref_named = {k: v for k, v in state_from_jax_params(_np(filled), port_model_cfg(cfg)).items()
                  if not (v == -1).all()}
     assert sorted(masks) == sorted(ref_named)
     for k, m in masks.items():
@@ -99,7 +101,7 @@ def test_fake_quant_equals_jax_and_quantize_state(bit, axis):
     params = apply_masks(params, ref_masks)  # pruned zeros stay out of min / max
     model = _model(params, cfg)
     got = make_fake_quant(bit, axis)(dict(model.named_parameters()))
-    ref = state_from_jax_params(_np(jax_fake_quant(bit, axis)(params)), cfg)
+    ref = state_from_jax_params(_np(jax_fake_quant(bit, axis)(params)), port_model_cfg(cfg))
     dequant = quantize_state(_state(model), bit, axis)[0]
     assert set(got) == set(ref)
     for k, v in got.items():
@@ -138,7 +140,7 @@ def test_quantize_params_report_equals_jax(video, codec):
     jrep, rep = jpipe.CompressionReport(), tpipe.CompressionReport()
     jout = jpipe.quantize_params(params, cfg, jrep, frame_hw=jstore.hw, n_frames=4)
     model = _model(params, mcfg)
-    out = tpipe.quantize_params(model, cfg, rep, frame_hw=store.hw, n_frames=4)
+    out = tpipe.quantize_params(model, port_train_cfg(cfg), rep, frame_hw=store.hw, n_frames=4)
     assert out is model
     for name in ("quant_bit", "avg_bits", "efficiency", "total_bits", "bpp", "num_symbols"):
         assert getattr(rep, name) == getattr(jrep, name), name
@@ -158,7 +160,7 @@ def test_path_b_bitstream_byte_equal_to_jax(video, tmp_path, branch_type):
     jout, jrep = jpipe.compress(params, cfg, jstore, bitstream_path=jpath)
     model = _model(params, mcfg)
     before = _state(model)
-    out, rep = tpipe.compress(model, cfg, store, bitstream_path=path)
+    out, rep = tpipe.compress(model, port_train_cfg(cfg), store, bitstream_path=path)
     assert open(path, "rb").read() == open(jpath, "rb").read()
     for name in ("prune_ratio_actual", "prune_ok", "avg_bits", "efficiency", "total_bits", "bpp",
                  "num_symbols"):
@@ -190,7 +192,7 @@ def test_path_a_masked_finetune_matches_jax(video, lr_mode):
     jout, jrep = jpipe.compress(params, cfg, jstore, start_epoch=2)
     model = _model(params, mcfg)
     masks, _ = global_l1_masks(model, "ERB", 0.3)
-    out, rep = tpipe.compress(model, cfg, store, start_epoch=2)
+    out, rep = tpipe.compress(model, port_train_cfg(cfg), store, start_epoch=2)
     assert rep.finetune_epochs == jrep.finetune_epochs == 2
     assert rep.prune_ratio_actual == jrep.prune_ratio_actual
     assert out.cfg.deploy and all(b.rbr_reparam is not None for b in out.layers)
@@ -199,8 +201,8 @@ def test_path_a_masked_finetune_matches_jax(video, lr_mode):
 
     # the masked finetune itself (before the fusion) keeps pruned weights at 0
     rep2 = tpipe.CompressionReport()
-    pruned, masks = tpipe.prune_params(_model(params, mcfg), cfg, rep2)
-    tuned = tpipe.finetune(pruned, masks, cfg, store, rep2)
+    pruned, masks = tpipe.prune_params(_model(params, mcfg), port_train_cfg(cfg), rep2)
+    tuned = tpipe.finetune(pruned, masks, port_train_cfg(cfg), store, rep2)
     w = dict(tuned.named_parameters())
     for k, m in masks.items():
         assert bool((w[k][m == 0] == 0).all()), k
@@ -220,7 +222,7 @@ def test_qat_deploys_first_and_matches_jax(video):
     cfg = _train_cfg(mcfg, prune_ratio=0.5, quant_bit=8, finetune=True, finetune_epochs=2,
                      finetune_qat=True)
     jout, jrep = jpipe.compress(params, cfg, jstore)
-    out, rep = tpipe.compress(_model(params, mcfg), cfg, store)
+    out, rep = tpipe.compress(_model(params, mcfg), port_train_cfg(cfg), store)
     assert rep.extras.get("qat") is True and jrep.extras.get("qat") is True
     assert out.cfg.deploy
     # the deploy targets were pruned: the same ratio over stem + rbr_reparam

@@ -195,7 +195,10 @@ def _port(params, cfg):
     from repnerv_tpu_torch.models.generator import Generator
     from repnerv_tpu_torch.train.checkpoint import load_state, state_from_jax_params
 
-    return load_state(Generator(cfg), state_from_jax_params(jax.tree.map(np.asarray, params), cfg))
+    from test_torch_config_codecs import port_model_cfg
+
+    pcfg = port_model_cfg(cfg)  # the port takes its own config class
+    return load_state(Generator(pcfg), state_from_jax_params(jax.tree.map(np.asarray, params), pcfg))
 
 
 T_CALIB = np.asarray([0.1, 0.5, 0.9], np.float32)  # odd: the last frame repeats

@@ -13,6 +13,8 @@ where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_decode_kernel.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -172,3 +174,142 @@ def test_cuda_kernel_activations(cuda, act):
     out = dk.decode_stage(xin, p, act)
     ref = dk.decode_stage_reference(xin, p, act)
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Which kernel a stage runs, and the wgmma + TMA kernel on the card
+# ---------------------------------------------------------------------------
+
+# (Cin, C, stride, head width) of the 720p flagship's decode stages
+FLAGSHIP_STAGES = {
+    "stage0": (26, 26, 5, 0),
+    "block1": (26, 96, 2, 0),
+    "block2": (96, 96, 2, 0),
+    "block3": (96, 96, 2, 0),
+    "block4+head": (96, 96, 2, 3),
+}
+
+
+@pytest.mark.parametrize("name", list(FLAGSHIP_STAGES))
+def test_route_of_flagship_stages(name):
+    cin, c, s, c_final = FLAGSHIP_STAGES[name]
+    want = "wgmma" if cin == 96 else "wmma"  # Cin 26: TMA cannot stride it
+    assert dk.stage_route(torch.bfloat16, cin, c, s, c_final) == want
+    assert dk.stage_route(torch.float32, cin, c, s, c_final) == "fma"
+
+
+@pytest.mark.parametrize(
+    "cin,c,c_final,want",
+    [
+        (8, 8, 0, "wgmma"),
+        (64, 40, 3, "wgmma"),
+        (96, 96, 4, "wgmma"),
+        (96, 96, 5, "wmma"),  # the head's outputs no longer fit four registers
+        (96, 104, 0, "wmma"),  # one sub-pixel's channels no longer fit one tile
+        (96, 44, 0, "wmma"),  # C not a multiple of 8
+        (12, 96, 0, "wmma"),  # Cin not a multiple of 8
+    ],
+)
+def test_route_bounds(cin, c, c_final, want):
+    for stride in (1, 2, 3, 5):
+        assert dk.stage_route(torch.bfloat16, cin, c, stride, c_final) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_weights_k_major_copy(dtype):
+    """The wgmma route's operand is the transpose of the present one, made
+    only on that route; the route is the packed stage's own property."""
+    x, w, b, hw, hb = _inputs(Cin=16, C=8, s=2, head=True)
+    p = dk.pack_weights(_t(w), _t(b), 2, dtype, head_w=_t(hw), head_b=_t(hb))
+    assert p.c_final == 3
+    if dtype == torch.bfloat16:
+        assert p.route == "wgmma"
+        assert p.wt.is_contiguous() and p.wt.dtype == dtype
+        assert tuple(p.wt.shape) == (32, 9 * 16)
+        assert torch.equal(p.wt, p.w.t())
+    else:
+        assert p.route == "fma" and p.wt is None
+    q = dk.pack_weights(_t(w)[:, :, :12], _t(b), 2, dtype)  # Cin 12
+    assert q.wt is None and q.route == ("wmma" if dtype == torch.bfloat16 else "fma")
+    # the plain version never reads the copy
+    out = dk.decode_stage(_t(x).to(dtype), p, "swish", "tanh")
+    ref = dk.decode_stage_reference(_t(x).to(dtype), dataclasses.replace(p, wt=None), "swish", "tanh")
+    assert torch.equal(out, ref)
+
+
+WGMMA_CASES = [
+    # B, H, W, Cin, C, s, head: H and W not multiples of any tile
+    (2, 5, 13, 96, 96, 2, None),
+    (2, 5, 13, 96, 96, 2, "tanh"),
+    (1, 37, 70, 96, 96, 2, "sigmoid"),  # several tiles a side, ragged edges
+    (3, 9, 33, 32, 40, 2, None),  # C not 96: the 64-wide tile, masked channels
+    (2, 11, 19, 8, 8, 3, "tanh"),  # Cin under one slice, 9 sub-pixels (odd)
+    (1, 4, 6, 72, 64, 1, None),  # stride 1: half of the pair is empty
+    (1, 7, 20, 40, 24, 5, None),  # stride 5, Cin over one slice with a tail
+    (2, 16, 32, 96, 96, 2, None),  # exact tiles
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Cin,C,s,head", WGMMA_CASES)
+def test_cuda_wgmma_kernel_matches_plain(cuda, B, H, W, Cin, C, s, head):
+    x, w, b, hw, hb = _inputs(B=B, H=H, W=W, Cin=Cin, C=C, s=s, head=head is not None)
+    dev = lambda a: None if a is None else torch.from_numpy(a).to(cuda)  # noqa: E731
+    p = dk.pack_weights(dev(w), dev(b), s, torch.bfloat16, head_w=dev(hw), head_b=dev(hb))
+    assert p.route == "wgmma"
+    xin = dev(x).bfloat16().contiguous()
+    before = dict(dk.ROUTE_LAUNCHES)
+    out = dk.decode_stage(xin, p, "swish", head or "tanh")
+    ref = dk.decode_stage_reference(xin, p, "swish", head or "tanh")
+    torch.cuda.synchronize()
+    assert dk.ROUTE_LAUNCHES["wgmma"] == before["wgmma"] + 1
+    assert dk.ROUTE_LAUNCHES["wmma"] == before["wmma"]
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    diff = (out.float() - ref.float()).abs()
+    if head is None:
+        # both round one f32 value to bf16: at most one ulp apart
+        assert bool((diff <= 2.0**-7 * ref.float().abs() + 1e-4).all()), diff.max().item()
+    else:
+        assert diff.max().item() <= 1e-4  # f32 summation order over K = 9*Cin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_wgmma_kernel_activations(cuda, act):
+    x, w, b, _, _ = _inputs(B=1, H=6, W=10, Cin=16, C=8, s=2, seed=3)
+    x *= 3.0
+    p = dk.pack_weights(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda), 2,
+                        torch.bfloat16)
+    xin = torch.from_numpy(x).to(cuda).bfloat16()
+    out = dk.decode_stage(xin, p, act)
+    ref = dk.decode_stage_reference(xin, p, act)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= 2.0**-7 * ref.float().abs() + 1e-4).all())
+
+
+@pytest.mark.gpu
+def test_cuda_route_that_cannot_take_the_shape_is_refused(cuda):
+    """No fallback inside the library: the wgmma route handed a shape it does
+    not take (Cin 12) returns an error instead of launching another kernel."""
+    import ctypes
+
+    from repnerv_tpu_torch.kernels.build import load_library
+
+    x, w, b, _, _ = _inputs(Cin=12, C=8, s=2)
+    p = dk.pack_weights(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda), 2,
+                        torch.bfloat16)
+    assert p.route == "wmma"
+    wt = p.w.t().contiguous()
+    xin = torch.from_numpy(x).to(cuda).bfloat16()
+    out = torch.zeros(2, 16, 32, 8, device=cuda, dtype=torch.bfloat16)
+    ptr = ctypes.c_void_p
+    err = load_library().repnerv_fused_conv_ps_act(
+        dk.ROUTES.index("wgmma"), ptr(xin.data_ptr()), ptr(p.w.data_ptr()), ptr(wt.data_ptr()),
+        ptr(p.b.data_ptr()), ptr(None), ptr(None), ptr(out.data_ptr()),
+        2, 8, 16, 12, 8, 2, dk.ACT_CODES["swish"], 0, 0,
+        ptr(torch.cuda.current_stream().cuda_stream),
+    )
+    torch.cuda.synchronize()
+    assert err != 0
+    assert not bool(out.any())  # nothing ran

@@ -35,6 +35,7 @@ from repnerv_tpu_torch.models.embedding import positional_encoding
 from repnerv_tpu_torch.models.generator import Generator, generator_to_deploy
 from repnerv_tpu_torch.train.checkpoint import load_state, state_from_jax_params
 from test_model_train import tiny_model
+from test_torch_config_codecs import port_model_cfg
 
 
 def _np_tree(params):
@@ -42,7 +43,8 @@ def _np_tree(params):
 
 
 def _port_generator(params, cfg):
-    return load_state(Generator(cfg), state_from_jax_params(_np_tree(params), cfg))
+    pcfg = port_model_cfg(cfg)  # the port takes its own config class
+    return load_state(Generator(pcfg), state_from_jax_params(_np_tree(params), pcfg))
 
 
 def test_positional_encoding_levels_40():
@@ -108,7 +110,7 @@ def test_reparam_fuse_matches_jax(branch_type):
         ngf=6, new_ngf=3, stride=2, branch_type=branch_type, generator=torch.Generator()
     )
     state = {k.split(".", 2)[2]: torch.from_numpy(np.array(v))
-             for k, v in state_from_jax_params(full, cfg).items()}
+             for k, v in state_from_jax_params(full, port_model_cfg(cfg)).items()}
     blk.load_state_dict(state, strict=True)
     k_ref, b_ref = jreparam.fuse(branch_type, params)
     with torch.no_grad():
@@ -199,7 +201,7 @@ def test_generator_bf16_matches_jax():
 
 
 def test_generator_refuses_unported_modes():
-    gen = Generator(tiny_model(compute_dtype="mixed"))
+    gen = Generator(port_model_cfg(tiny_model(compute_dtype="mixed")))
     gen.train()
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         gen(torch.zeros(1, gen.cfg.embed_length))

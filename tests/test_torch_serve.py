@@ -20,20 +20,25 @@ from PIL import Image
 from repnerv_tpu.compress.bitstream import read_bitstream as jax_read_bitstream
 from repnerv_tpu.compress.bitstream import write_bitstream
 from repnerv_tpu.compress.quantize import quantize_state
-from repnerv_tpu.config import BRANCH_TYPES, TrainConfig
+from repnerv_tpu.config import BRANCH_TYPES
+from repnerv_tpu.config import TrainConfig as JaxTrainConfig
 from repnerv_tpu.models.generator import init_generator
 from repnerv_tpu.train.checkpoint import params_to_torch_state
 from repnerv_tpu.train.loop import make_decode_fn as jax_make_decode_fn
 
 from repnerv_tpu_torch.cli import decode_main
-from repnerv_tpu_torch.compress.bitstream import read_bitstream, write_state_bitstream
+from repnerv_tpu_torch.compress.bitstream import read_bitstream
+from repnerv_tpu_torch.compress.bitstream import write_bitstream as port_write_bitstream
+from repnerv_tpu_torch.config import ModelConfig, TrainConfig
 from repnerv_tpu_torch.models.generator import Generator
 from repnerv_tpu_torch.train.checkpoint import load_state, state_from_jax_params
 from repnerv_tpu_torch.train.loop import decode_batch_cap, decode_video, measure_decode_fps
 from test_model_train import tiny_model
+from test_torch_config_codecs import port_model_cfg
 
 
 def _cfg(branch_type="ERB", **over):
+    """The JAX package's config; ``port_model_cfg`` gives the port its own."""
     return tiny_model(branch_type=branch_type, fc_hw_dim="2_2_4", strides=(2, 2), **over)
 
 
@@ -43,12 +48,13 @@ def test_state_from_jax_params_equals_params_to_torch_state(branch_type, norm):
     cfg = _cfg(branch_type, norm=norm)
     params = init_generator(jax.random.PRNGKey(7), cfg)
     ref = params_to_torch_state(params, cfg)
-    state = state_from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    pcfg = port_model_cfg(cfg)
+    state = state_from_jax_params(jax.tree.map(np.asarray, params), pcfg)
     assert sorted(state) == sorted(ref)  # tree.map sorts dict keys: order differs
     for k in ref:
         assert state[k].shape == ref[k].shape, k
         np.testing.assert_array_equal(state[k], ref[k], err_msg=k)
-    gen = load_state(Generator(cfg), state)  # strict=True
+    gen = load_state(Generator(pcfg), state)  # strict=True
     assert set(gen.state_dict()) == set(state)
 
 
@@ -67,7 +73,7 @@ def test_read_bitstream_bit_equal_to_jax(tmp_path, codec, prune):
     jparams, jcfg, jheader = jax_read_bitstream(path)
     ref = params_to_torch_state(jparams, jcfg)
     state, mcfg, header = read_bitstream(path)
-    assert mcfg == jcfg and header == jheader
+    assert isinstance(mcfg, ModelConfig) and mcfg == port_model_cfg(jcfg) and header == jheader
     assert list(state) == list(ref)
     for k in ref:
         assert state[k].dtype == np.float32
@@ -75,13 +81,13 @@ def test_read_bitstream_bit_equal_to_jax(tmp_path, codec, prune):
 
 
 def test_write_state_bitstream_round_trip(tmp_path):
-    """The port's writer (the JAX package's quantizer and writer on a port
-    state dict) reads back as the quantizer's dequantized state."""
-    cfg = _cfg()
+    """The port's writer on a port state dict reads back as the JAX
+    package's quantizer's dequantized state."""
+    cfg = port_model_cfg(_cfg())
     gen = Generator(cfg, seed=3)
     state = {k: v.detach().numpy() for k, v in gen.state_dict().items()}
     path = str(tmp_path / "port.rnvb")
-    acct = write_state_bitstream(path, state, cfg, quant_bit=8)
+    acct = port_write_bitstream(path, state, cfg, quant_bit=8)
     assert acct["file_bytes"] == os.path.getsize(path)
     dequant = quantize_state(state, 8)[0]
     back, mcfg, _ = read_bitstream(path)
@@ -114,7 +120,7 @@ def test_decode_main_cpu_matches_jax_decode(tmp_path):
 
     jparams, jcfg, _ = jax_read_bitstream(path)
     jparams, jcfg = generator_to_deploy(jparams, jcfg)
-    decode = jax_make_decode_fn(TrainConfig(model=jcfg))
+    decode = jax_make_decode_fn(JaxTrainConfig(model=jcfg))
     ref = np.asarray(decode(jparams, jnp.arange(n, dtype=jnp.float32) / n))
     ref = np.clip(ref * 255, 0, 255).astype(np.uint8)
     assert got.shape == ref.shape == (n, 8, 8, 3)
@@ -122,7 +128,7 @@ def test_decode_main_cpu_matches_jax_decode(tmp_path):
 
 
 def test_decode_video_batches_and_checksums():
-    cfg = _cfg()
+    cfg = port_model_cfg(_cfg())
     gen = Generator(cfg, seed=1)
     t = torch.arange(6, dtype=torch.float32).reshape(3, 2) / 6
     frames = decode_video(gen, TrainConfig(model=cfg), t)
@@ -139,10 +145,10 @@ def test_decode_batch_cap_matches_jax():
 
 
 def test_unported_flags_and_cpu_fps_refuse(tmp_path):
-    cfg = _cfg()
+    cfg = port_model_cfg(_cfg())
     path = str(tmp_path / "m.rnvb")
-    write_state_bitstream(
-        path, {k: v.detach().numpy() for k, v in Generator(cfg).state_dict().items()}, cfg
+    port_write_bitstream(
+        path, {k: v.detach().numpy() for k, v in Generator(cfg).state_dict().items()}, cfg, 8
     )
     for flag in (["--mesh_shape", "2"],):
         with pytest.raises(SystemExit):

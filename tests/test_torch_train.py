@@ -22,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from repnerv_tpu.config import BRANCH_TYPES, TrainConfig
+from repnerv_tpu.config import BRANCH_TYPES
+from repnerv_tpu.config import TrainConfig as JaxTrainConfig
 from repnerv_tpu.models import generator as jgen
 from repnerv_tpu.models.embedding import positional_encoding as jpe
 
+from repnerv_tpu_torch.config import TrainConfig
 from repnerv_tpu_torch.data.frames import FrameStore
 from repnerv_tpu_torch.models import generator as tgen
 from repnerv_tpu_torch.models.embedding import positional_encoding
@@ -33,6 +35,7 @@ from repnerv_tpu_torch.models.generator import Generator, generator_to_deploy
 from repnerv_tpu_torch.train import loop as tloop
 from repnerv_tpu_torch.train.checkpoint import load_state, state_from_jax_params
 from test_model_train import tiny_model
+from test_torch_config_codecs import port_model_cfg, port_train_cfg
 
 
 def _np_tree(tree):
@@ -40,7 +43,8 @@ def _np_tree(tree):
 
 
 def _port_model(params, cfg, train=True):
-    model = load_state(Generator(cfg), state_from_jax_params(_np_tree(params), cfg))
+    pcfg = port_model_cfg(cfg)  # the port takes its own config class
+    model = load_state(Generator(pcfg), state_from_jax_params(_np_tree(params), pcfg))
     return model.train(train)
 
 
@@ -51,7 +55,7 @@ def _jax_fwd_grads(params, cfg, t, ct):
         return jnp.sum(jgen.apply_generator(p, emb, cfg, train=True)[-1] * jnp.asarray(ct))
 
     out = jgen.apply_generator(params, emb, cfg, train=True)[-1]
-    grads = state_from_jax_params(_np_tree(jax.grad(f)(params)), cfg)
+    grads = state_from_jax_params(_np_tree(jax.grad(f)(params)), port_model_cfg(cfg))
     # BN's running statistics are leaves of the JAX params, buffers here
     return np.asarray(out), {k: v for k, v in grads.items() if "running" not in k}
 
@@ -160,7 +164,7 @@ def test_generator_to_deploy_leaves_the_model_training():
     """The deploy snapshot is a fused copy: the training model keeps its
     branches and weights and trains on (train_main writes deploy snapshots
     while training continues)."""
-    cfg = tiny_model(branch_type="ERB", fc_hw_dim="3_4_4", strides=(2, 2))
+    cfg = port_model_cfg(tiny_model(branch_type="ERB", fc_hw_dim="3_4_4", strides=(2, 2)))
     model = Generator(cfg, seed=1).train()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     dep = generator_to_deploy(model)
@@ -200,12 +204,13 @@ def test_two_epoch_fusion6_trajectory_matches_jax(kernel_gates):
     from repnerv_tpu.train import loop as jloop
 
     cfg = tiny_model(branch_type="ERB", embed="1.25_4", fc_hw_dim="3_4_6", strides=(2, 2))
-    tcfg = TrainConfig(model=cfg, epochs=2, warmup=0.5, lr=5e-3, loss_type="Fusion6",
-                       manual_seed=1)
+    tcfg = JaxTrainConfig(model=cfg, epochs=2, warmup=0.5, lr=5e-3, loss_type="Fusion6",
+                          manual_seed=1)
     tcfg.data.batch_size = 1
     video, t_all = synthetic_video(4, 12, 16, seed=2)
     params = jgen.init_generator(jax.random.PRNGKey(7), cfg)
-    start = state_from_jax_params(_np_tree(params), cfg)
+    ptcfg = port_train_cfg(tcfg)  # the same fields in the port's own classes
+    start = state_from_jax_params(_np_tree(params), ptcfg.model)
 
     jstate = jloop.TrainState(params, jloop.make_optimizer(tcfg).init(params),
                               jnp.asarray(0, jnp.int32))
@@ -215,15 +220,15 @@ def test_two_epoch_fusion6_trajectory_matches_jax(kernel_gates):
     for epoch in range(2):
         jstate, m = jloop.run_epoch(jstate, jstep, jstore, tcfg, epoch)
         ref.append((m.loss, float(m.psnr[-1]), m.lr))
-    ref_final = state_from_jax_params(_np_tree(jstate.params), cfg)
+    ref_final = state_from_jax_params(_np_tree(jstate.params), ptcfg.model)
 
-    model = load_state(Generator(cfg), start).train()
-    state = tloop.TrainState(model, tloop.make_optimizer(tcfg, model), 0)
-    step = tloop.make_train_step(tcfg, steps_per_epoch=4, with_msssim=False)
+    model = load_state(Generator(ptcfg.model), start).train()
+    state = tloop.TrainState(model, tloop.make_optimizer(ptcfg, model), 0)
+    step = tloop.make_train_step(ptcfg, steps_per_epoch=4, with_msssim=False)
     store = FrameStore(frames=torch.from_numpy(video), t=t_all)
     got = []
     for epoch in range(2):
-        state, m = tloop.run_epoch(state, step, store, tcfg, epoch)
+        state, m = tloop.run_epoch(state, step, store, ptcfg, epoch)
         got.append((m.loss, float(m.psnr[-1]), m.lr))
 
     assert state.step == 8
@@ -263,7 +268,7 @@ def test_divergence_guard_restores_best_with_fresh_adam(psnrs, restored):
     moments and keeps the step; a healthy dip changes nothing."""
     from repnerv_tpu_torch.train.recovery import DivergenceGuard
 
-    cfg = TrainConfig(model=tiny_model(), epochs=10, lr=5e-3, loss_type="L2")
+    cfg = TrainConfig(model=port_model_cfg(tiny_model()), epochs=10, lr=5e-3, loss_type="L2")
     state = _tiny_state(cfg)
     state.optimizer.state[next(state.model.parameters())]["exp_avg"] = torch.ones(1)
     guard = DivergenceGuard(cfg, log=lambda m: None)
@@ -289,7 +294,7 @@ def test_divergence_guard_restores_best_with_fresh_adam(psnrs, restored):
 def test_prune_masks_hold_grads_and_weights_at_zero():
     """Masks multiply the gradients before the update and the weights
     after it (the JAX step's _apply_mask at loop.py:119 and :124)."""
-    cfg = TrainConfig(model=tiny_model(), epochs=2, lr=5e-3, loss_type="L2")
+    cfg = TrainConfig(model=port_model_cfg(tiny_model()), epochs=2, lr=5e-3, loss_type="L2")
     state = _tiny_state(cfg)
     name = "layers.1.branch.weight"
     w = dict(state.model.named_parameters())[name]
@@ -316,8 +321,9 @@ def test_frame_dir_store_matches_jax(tmp_path):
     rng = np.random.default_rng(0)
     for i in range(3):
         Image.fromarray(rng.integers(0, 256, (10, 6, 3), dtype=np.uint8)).save(d / f"f{i:03d}.png")
-    cfg = DataConfig(dataset="vid", data_dir=str(tmp_path), vid=(0, 2), cache_device=False)
-    ref = jframes.make_frame_store(cfg)
+    kw = dict(dataset="vid", data_dir=str(tmp_path), vid=(0, 2), cache_device=False)
+    cfg = DataConfig(**kw)
+    ref = jframes.make_frame_store(JaxTrainConfig().data.__class__(**kw))
     store = make_frame_store(cfg, "cpu")
     np.testing.assert_array_equal(store.frames.numpy(), np.asarray(ref.frames))
     np.testing.assert_array_equal(store.t, ref.t)

@@ -287,3 +287,69 @@ def test_cuda_fused_stage_matches_cpu_plain(cuda, dtype):
     rel = 1e-5 if dtype == "float32" else 2.0**-6
     for a, r in zip(g, ref_g):
         _close(a, r, rel)
+
+
+# K3 on the wgmma + TMA kernel: B, H, W, Cin, C, s, head at ragged sizes (H, W
+# not multiples of a tile; C = 96 and a C that is not)
+WGMMA_SHAPES = [
+    (1, 5, 13, 96, 96, 2, None),
+    (2, 5, 13, 96, 96, 2, "tanh"),
+    (1, 37, 70, 96, 96, 2, "sigmoid"),
+    (2, 9, 33, 32, 40, 2, None),
+    (1, 11, 19, 8, 8, 3, "tanh"),
+    (1, 7, 20, 40, 24, 5, None),
+]
+
+
+@pytest.mark.parametrize("B,H,W,Cin,C,s,head", WGMMA_SHAPES)
+def test_wgmma_shapes_take_the_wgmma_route(B, H, W, Cin, C, s, head):
+    """CPU: the route is the packed stage's own, and the plain version (what
+    a CPU tensor gets) never reads the K-major copy."""
+    x, w, b, hw, hb, _ = _inputs(B=B, H=H, W=W, Cin=Cin, C=C, s=s, head=head is not None)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    p = dk.pack_weights(t(w), t(b), s, torch.bfloat16, head_w=t(hw), head_b=t(hb))
+    assert p.route == "wgmma" and torch.equal(p.wt, p.w.t())
+    assert dk.pack_weights(t(w), t(b), s, torch.float32).route == "fma"
+    before = dict(tt.FWD_ROUTE_LAUNCHES)
+    out, z = tt.stage_forward(t(x).bfloat16(), p, "swish", head or "tanh")
+    assert tt.FWD_ROUTE_LAUNCHES == before  # a CPU tensor launches nothing
+    assert tuple(z.shape) == (B, H * s, W * s, C) and z.dtype == torch.bfloat16
+    assert tuple(out.shape) == (B, H * s, W * s, 3 if head else C)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Cin,C,s,head", WGMMA_SHAPES)
+def test_cuda_wgmma_forward_matches_plain(cuda, B, H, W, Cin, C, s, head):
+    x, w, b, hw, hb, _ = _inputs(B=B, H=H, W=W, Cin=Cin, C=C, s=s, head=head is not None)
+    dev = lambda a: None if a is None else torch.from_numpy(a).to(cuda)  # noqa: E731
+    p = dk.pack_weights(dev(w), dev(b), s, torch.bfloat16, head_w=dev(hw), head_b=dev(hb))
+    assert p.route == "wgmma"
+    xin = dev(x).bfloat16().contiguous()
+    before = dict(tt.FWD_ROUTE_LAUNCHES)
+    out, z = tt.stage_forward(xin, p, "swish", head or "tanh")
+    ref_out, ref_z = tt.stage_forward_reference(xin, p, "swish", head or "tanh")
+    torch.cuda.synchronize()
+    assert tt.FWD_ROUTE_LAUNCHES["wgmma"] == before["wgmma"] + 1
+    assert tt.FWD_ROUTE_LAUNCHES["wmma"] == before["wmma"]
+    assert out.dtype == ref_out.dtype and out.shape == ref_out.shape
+    assert z.dtype == ref_z.dtype and z.shape == ref_z.shape
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(z).all())
+    assert _bf16_ulp_ok(z, ref_z)
+    if head is None:
+        assert _bf16_ulp_ok(out, ref_out)
+    else:
+        assert (out - ref_out).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_wgmma_forward_activations(cuda, act):
+    """Swish is compiled into the wgmma kernel, the others go through its
+    run-time switch: each against the plain version, z included."""
+    x, w, b, _, _, _ = _inputs(B=1, H=6, W=10, Cin=16, C=8, s=2, seed=3, scale=3.0)
+    p = dk.pack_weights(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda), 2,
+                        torch.bfloat16)
+    xin = torch.from_numpy(x).to(cuda).bfloat16()
+    out, z = tt.stage_forward(xin, p, act, "tanh")
+    ref_out, ref_z = tt.stage_forward_reference(xin, p, act, "tanh")
+    assert _bf16_ulp_ok(z, ref_z) and _bf16_ulp_ok(out, ref_out)
