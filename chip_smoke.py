@@ -13,13 +13,16 @@ and matches its plain path.
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — a CUDA device is required; its name and power limit
   2. build   — nvcc builds csrc/*.cu from the checkout, one process per source;
-               the library's SASS is searched for HGMMA (wgmma) instructions
+               the library's SASS is searched, per wgmma kernel source, for
+               HGMMA (bf16, tf32) / IGMMA (int8) and UTMALDG (TMA) instructions
   3. kernel  — K1 (decode stage) vs plain version, f32 and bf16, at the shapes
                the serve phase gives it (Bunny-720p ERB flagship, batch 8); per
-               shape the route it took (wgmma / wmma / fma), its bound (the
-               least time the card could take, ``roofline``), the time of one
-               F.conv2d on the same shape (the library yardstick, used nowhere
-               in the port) and, on the wgmma route, the WMMA kernel's time
+               shape the route it took (wgmma_tf32x3 / fma in f32, wgmma / wmma
+               in bf16), its bound (the least time the card could take,
+               ``roofline``), the time of one F.conv2d on the same shape (the
+               library yardstick, used nowhere in the port) and, on a wgmma
+               route, the time (f32: and the error) of the kernel the shape
+               ran before, the FMA or the WMMA kernel, in the same run
   4. serve   — flagship ERB generator from seed 0 -> 8-bit .rnvb -> decode_main
                (32 frames, batch 8) in f32 and bf16; launch count, frames vs
                the plain path, fps of both paths
@@ -34,12 +37,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                path vs --no_pallas_train (loss, gradients); ms per step of
                both paths; where a step's time goes (torch.profiler)
   7. int8-kernel — K2 (int8 decode stage) vs plain version at the flagship's
-               int8 blocks 3 and 4 + head (batch 8) and the stride-5 stage
+               int8 blocks 3 and 4 + head (batch 8, the wgmma s8 kernel; beside
+               it the WMMA kernel's and the bf16 kernel's time on the same
+               shape) and the stride-5 stage (the WMMA kernel)
   8. compress — eval_main on phase 6's bf16 run: PATH B (prune 0.2, 8 bits,
                .rnvb) without and with --decode_int8, PATH A (1 masked
                finetune epoch), QAT (1 epoch); then decode_main --decode_int8
-               serves the .rnvb: 2 K1 + 2 K2 launches per batch, frames vs
-               the plain path, fps of the int8, bf16 and plain paths
+               serves the .rnvb: 2 K1 + 2 K2 launches per batch (both K2 on
+               the wgmma route), frames vs the plain path, fps of the int8,
+               bf16 and plain paths
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
 heavy part).  The last line is {"ok": true, "device": {...}}.  Needs no
@@ -95,8 +101,15 @@ SHAPES = [
 ]
 MAIN_PATH_SHAPES = ("block1", "block2", "block3", "block4+head")
 SERVE_FRAMES, SERVE_BATCH = 32, 8
-# f32: the kernel and cuDNN (TF32 off) sum K = 9*Cin <= 864 exact f32
-# products in different orders, ~sqrt(K) * 2^-24 * sum|terms| << 1e-4
+# f32 against cuDNN with TF32 off, K = 9*Cin <= 864 products a value.  The FMA
+# kernel sums the same exact f32 products in another order: ~sqrt(K) * 2^-24 *
+# |sum|.  The wgmma kernel sums three TF32 tensor-core products per f32
+# product (a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, operands split so that each is
+# exact) and drops a_lo*b_lo, ~2^-22 a term.  The tensor core adds into its f32
+# accumulator by truncation, so the kernel leaves it only the 16 channels of
+# one tap at a time (6 MMAs from zero: small sums, small truncation) and adds
+# those 54 partial sums with f32 additions, rounded to nearest.  Both kernels'
+# errors on the same inputs are printed side by side.
 F32_ATOL = 1e-4
 # bf16 without a head: both round the same f32 value (up to that summation
 # order) to bf16, so they differ by at most one bf16 ulp: 2^-7 |ref| + 1e-4.
@@ -198,16 +211,16 @@ def conv_library_ms(x: torch.Tensor, p, tf32: bool = False) -> float:
         torch.backends.cudnn.allow_tf32 = saved
 
 
-def wmma_ms(x: torch.Tensor, p, out: torch.Tensor, z=None) -> float:
-    """The time of the WMMA kernel (route 1 of csrc/decode.cu) at a shape
-    that the port sends to the wgmma kernel: the time before the redesign,
-    read in the same run.  A measurement of this script only; the port's
-    wrappers take no route."""
+def old_kernel_run(route: str, x: torch.Tensor, p, out: torch.Tensor, z=None):
+    """A call of the kernel that ran this shape before its wgmma kernel
+    existed: ``route`` "wmma" (bf16) or "fma" (f32) of csrc/decode.cu through
+    the C entry, into ``out`` (and ``z``).  A measurement of this script only;
+    the port's wrappers take no route."""
     lib = build.load_library()
     ptr = ctypes.c_void_p
     bsz, h, w, cin = x.shape
     entry = lib.repnerv_fused_conv_ps_act if z is None else lib.repnerv_train_stage_fwd
-    args = [dk.ROUTES.index("wmma"), ptr(x.data_ptr()), ptr(p.w.data_ptr()), ptr(None),
+    args = [dk.ROUTES.index(route), ptr(x.data_ptr()), ptr(p.w.data_ptr()), ptr(None),
             ptr(p.b.data_ptr()), ptr(p.head_w.data_ptr() if p.c_final else None),
             ptr(p.head_b.data_ptr() if p.c_final else None), ptr(out.data_ptr())]
     if z is not None:
@@ -217,9 +230,9 @@ def wmma_ms(x: torch.Tensor, p, out: torch.Tensor, z=None) -> float:
     def run():
         err = entry(*args, ptr(torch.cuda.current_stream().cuda_stream))
         if err != 0:
-            raise RuntimeError(f"WMMA kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"{route} kernel launch failed: cudaError {err}")
 
-    return cuda_ms(run)
+    return run
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -259,50 +272,68 @@ def phase_build() -> None:
         for line in f:
             if "registers" in line or "spill" in line:
                 log(f"[build] ptxas: {line.strip()}")
-    # does the library hold wgmma instructions (HGMMA in SASS)?
+    # did each operand type reach wgmma?  HGMMA (bf16, tf32) / IGMMA (int8) and
+    # UTMALDG (TMA loads) in the SASS of each wgmma source's kernels
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    try:
-        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
-                              timeout=300, check=True).stdout
-        log(f"[build] SASS of {os.path.basename(so)}: {sass.count('HGMMA')} HGMMA instructions, "
-            f"{sass.count('UTMALDG')} UTMALDG (TMA loads)")
-    except (OSError, subprocess.SubprocessError) as e:
-        log(f"[build] SASS not inspected ({type(e).__name__}: {e})")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    functions = sass.split("Function : ")[1:]
+    for source, policy in (("decode_wgmma.cu", "Bf16Policy"),
+                           ("decode_wgmma_tf32.cu", "Tf32x3Policy"),
+                           ("decode_wgmma_s8.cu", "S8Policy")):
+        mine = [f for f in functions if policy in f.split("\n", 1)[0]]
+        counts = {k: sum(f.count(k) for f in mine) for k in ("HGMMA", "IGMMA", "UTMALDG")}
+        log(f"[build] SASS of {source}: {len(mine)} kernels, " +
+            ", ".join(f"{v} {k}" for k, v in counts.items()))
+        gmma = "IGMMA" if policy == "S8Policy" else "HGMMA"
+        if not mine or not counts[gmma] or not counts["UTMALDG"]:
+            raise AssertionError(f"{source} holds no {gmma} or no UTMALDG instruction")
 
 
-def stage_yardsticks(x: torch.Tensor, p, out: torch.Tensor, z=None) -> dict:
-    """Bound, library time and (on the wgmma route) the WMMA kernel's time
-    of one stage call.  Bound: the conv's and the head's FLOPs on the unit
-    the type can use (bf16 tensor cores; f32 the FMA pipes, and beside it
-    what a 3xTF32 tensor-core design would be bound by: 3 x FLOPs / 495
-    TFLOP/s) against x, the weights, the bias, the head and every output
-    crossing device memory once."""
+def stage_yardsticks(x: torch.Tensor, p, out: torch.Tensor, z=None, refs=()) -> dict:
+    """Bound, library time and, on a wgmma route, the time of the kernel the
+    shape ran before (bf16: WMMA; f32: FMA, with its error against ``refs``,
+    the plain version's out [and z]) of one stage call.  Bound: the conv's
+    and the head's FLOPs on the unit the kernel's route uses (bf16 tensor
+    cores; f32 on the wgmma route three TF32 tensor-core products per f32
+    product, 3 x FLOPs / 495 TFLOP/s, else the FMA pipes) against x, the
+    weights, the bias, the head and every output crossing device memory once."""
     bsz, h, w, cin = x.shape
     ops = stage_ops(bsz, h, w, cin, p.c, p.stride, p.c_final)
     moved = nbytes(x, p.w, p.b, p.head_w, p.head_b, out, z)
+    old_out, old_z = torch.empty_like(out), None if z is None else torch.empty_like(z)
     if x.dtype == torch.bfloat16:
         row = roofline(ops, moved, "bf16")
         row["library_ms"] = conv_library_ms(x, p)
         if p.route == "wgmma":
-            row["wmma_ms"] = wmma_ms(x, p, torch.empty_like(out),
-                                     None if z is None else torch.empty_like(z))
+            row["wmma_ms"] = cuda_ms(old_kernel_run("wmma", x, p, old_out, old_z))
+        return row
+    fma = roofline(ops, moved, "f32")
+    if p.route == "wgmma_tf32x3":
+        row = roofline(3 * ops, moved, "tf32")
+        row["bound_fma_ms"] = fma["bound_ms"]
+        row["fma_ms"] = cuda_ms(old_kernel_run("fma", x, p, old_out, old_z))
+        torch.cuda.synchronize()
+        row["fma_max_abs_err"] = max(
+            (a - r.to(a.dtype)).abs().max().item() for a, r in zip((old_out, old_z), refs))
     else:
-        row = roofline(ops, moved, "f32")
-        row["bound_3xtf32_ms"] = max(3 * ops / PEAK_OPS["tf32"] * 1e3, row["bytes_ms"])
-        row["library_ms"] = conv_library_ms(x, p, tf32=False)  # the same function: exact f32
-        row["library_tf32_ms"] = conv_library_ms(x, p, tf32=True)
+        row = fma
+    row["library_ms"] = conv_library_ms(x, p, tf32=False)  # the same function: exact f32
+    row["library_tf32_ms"] = conv_library_ms(x, p, tf32=True)
     return row
 
 
 def yardstick_text(row: dict) -> str:
-    text = f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})"
-    if "bound_3xtf32_ms" in row:
-        text += f" / 3xTF32 {row['bound_3xtf32_ms']:.3f}"
-    text += f", F.conv2d {row['library_ms']:.3f} ms"
+    text = f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}"
+    text += ", 3xTF32" if "bound_fma_ms" in row else ""
+    text += f"), F.conv2d {row['library_ms']:.3f} ms"
     if "library_tf32_ms" in row:
         text += f" (TF32 on {row['library_tf32_ms']:.3f})"
     if "wmma_ms" in row:
         text += f", WMMA kernel {row['wmma_ms']:.3f} ms"
+    if "fma_ms" in row:
+        text += (f", FMA kernel {row['fma_ms']:.3f} ms with max|d|={row['fma_max_abs_err']:.3e} "
+                 f"(its bound {row['bound_fma_ms']:.3f})")
     return text
 
 
@@ -344,7 +375,7 @@ def phase_kernel() -> dict:
             plain_ms = cuda_ms(lambda: dk.decode_stage_reference(xin, p, "swish", "tanh"))
             row = {"shape": name, "dtype": dname, "route": p.route, "max_abs_err": err,
                    "tol": tol, "ms": ms, "plain_ms": plain_ms}
-            row.update(stage_yardsticks(xin, p, out))
+            row.update(stage_yardsticks(xin, p, out, refs=(ref,)))
             log(
                 f"[kernel] {dname:8s} {name:12s} x[{SERVE_BATCH},{h},{w},{cin}] s={s} "
                 f"-> {list(out.shape)}: max|d|={err:.3e} (tol {tol}) {p.route} "
@@ -380,9 +411,10 @@ def phase_serve(tmp: str) -> dict:
         launches, routes = dk.LAUNCHES, dict(dk.ROUTE_LAUNCHES)  # ... and ends here
         passes = n_batches * (1 + DECODE_REPS)
         expected = 4 * passes
-        # bf16: blocks 2-4 (Cin 96) on the wgmma kernel, block 1 (Cin 26) on WMMA
-        want = ({"fma": 0, "wmma": passes, "wgmma": 3 * passes} if dtype == "bfloat16"
-                else {"fma": expected, "wmma": 0, "wgmma": 0})
+        # blocks 2-4 (Cin 96) on the type's wgmma kernel, block 1 (Cin 26) on WMMA / FMA
+        want = dict.fromkeys(dk.ROUTES, 0)
+        want.update({"wmma": passes, "wgmma": 3 * passes} if dtype == "bfloat16"
+                    else {"fma": passes, "wgmma_tf32x3": 3 * passes})
         log(f"[serve] {dtype}: decode_main -> {res}; kernel launches {launches} (expect "
             f"{expected}), by route {routes} (expect {want})")
         if launches != expected:
@@ -484,7 +516,7 @@ def phase_train_kernels() -> dict:
             plain_ms = cuda_ms(lambda: tt.stage_forward_reference(x, p, "swish", "tanh"))
             row = {"shape": name, "dtype": dname, "route": p.route, "max_abs_err": err,
                    "tol": tol, "ms": ms, "plain_ms": plain_ms}
-            row.update(stage_yardsticks(x, p, out, z))
+            row.update(stage_yardsticks(x, p, out, z, refs=(ref_out, ref_z)))
             log(f"[train-kernels] K3 {dname:8s} {name:12s} x[1,{h},{w},{cin}] -> out "
                 f"{list(out.shape)} z {list(z.shape)}: max|d|={err:.3e} (tol {tol}) {p.route} "
                 f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {yardstick_text(row)} "
@@ -575,7 +607,7 @@ def launch_counts() -> dict:
 
 def reset_counts() -> None:
     dk.LAUNCHES = k8.LAUNCHES = tt.FWD_LAUNCHES = tt.BWD_LAUNCHES = sb.LAUNCHES = 0
-    for routes in (dk.ROUTE_LAUNCHES, tt.FWD_ROUTE_LAUNCHES):
+    for routes in (dk.ROUTE_LAUNCHES, tt.FWD_ROUTE_LAUNCHES, k8.ROUTE_LAUNCHES):
         for r in routes:
             routes[r] = 0
 
@@ -623,8 +655,8 @@ def one_step_grads(dtype: str, use_kernel: bool, store: FrameStore):
 
 # kernel-name fragments -> the group a profiled CUDA kernel counts under
 PROFILE_GROUPS = [
+    ("K2 int8 stage", ("int8", "s8policy")),
     ("K1/K3 stage forward", ("stage_wgmma", "tensor_core::kernel", "cuda_core::kernel")),
-    ("K2 int8 stage", ("int8",)),
     ("K4 epilogue backward", ("epilogue_bwd",)),
     ("K5 SSIM blur", ("blur_valid",)),
     ("cuDNN conv (stage 0, dX/dW)", ("conv", "cudnn", "xmma", "implicit_gemm", "wgrad",
@@ -747,9 +779,10 @@ def phase_train(tmp: str) -> dict:
                 if eval_counts.get(k, 0) != PER_EVAL_FRAME[k] * n_eval:
                     raise AssertionError(f"{k}: {eval_counts.get(k, 0)} launches in the eval of "
                                          f"{n_eval} frames, expected {PER_EVAL_FRAME[k]} each")
-            # bf16: blocks 2-4 (Cin 96) on the wgmma kernel, block 1 (Cin 26) on WMMA
-            want = ({"fma": 0, "wmma": steps, "wgmma": 3 * steps} if dtype == "bfloat16"
-                    else {"fma": 4 * steps, "wmma": 0, "wgmma": 0})
+            # blocks 2-4 (Cin 96) on the type's wgmma kernel, block 1 (Cin 26) on WMMA / FMA
+            want = dict.fromkeys(dk.ROUTES, 0)
+            want.update({"wmma": steps, "wgmma": 3 * steps} if dtype == "bfloat16"
+                        else {"fma": steps, "wgmma_tf32x3": 3 * steps})
             log(f"[train] {dtype}: K3 launches by route {routes} (expect {want})")
             if routes != want:
                 raise AssertionError(f"{dtype}: K3 launches by route {routes}, expected {want}")
@@ -847,6 +880,39 @@ INT8_FRAC = 1e-3
 INT8_HEAD_ATOL = 1e-5
 
 
+def int8_wmma_run(x_q: torch.Tensor, p, out: torch.Tensor):
+    """A call of the WMMA kernel of csrc/decode_int8.cu (route 0 of the C
+    entry) at a shape that the port sends to the wgmma kernel.  A measurement
+    of this script only; the port's wrapper takes no route."""
+    lib = build.load_library()
+    ptr = ctypes.c_void_p
+    bsz, h, w, cin = x_q.shape
+    args = [k8.ROUTES.index("wmma"), ptr(x_q.data_ptr()), ptr(p.w.data_ptr()), ptr(None),
+            ptr(p.scale.data_ptr()), ptr(p.b.data_ptr()),
+            ptr(None if p.c_final else p.inv_out.data_ptr()),
+            ptr(p.head_w.data_ptr() if p.c_final else None),
+            ptr(p.head_b.data_ptr() if p.c_final else None), ptr(out.data_ptr()),
+            bsz, h, w, cin, p.c, p.stride, dk.ACT_CODES["swish"], p.c_final, 0]
+
+    def run():
+        err = lib.repnerv_fused_conv_ps_act_int8(*args, ptr(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"int8 WMMA kernel launch failed: cudaError {err}")
+
+    return run
+
+
+def bf16_stage_ms(bsz, h, w, cin, c, s, head, g) -> float:
+    """The bf16 stage kernel's time at a shape of the int8 decode, on random
+    operands: what the same stage costs without quantization."""
+    dev = torch.device("cuda", 0)
+    x = torch.randn(bsz, h, w, cin, generator=g).to(dev).bfloat16()
+    wt = (torch.randn(3, 3, cin, c * s * s, generator=g) * (9 * cin) ** -0.5).to(dev)
+    hw = (torch.randn(1, 1, c, 3, generator=g) * c**-0.5).to(dev) if head else None
+    p = dk.pack_weights(wt, None, s, torch.bfloat16, head_w=hw)
+    return cuda_ms(lambda: dk.decode_stage(x, p, "swish", "tanh"))
+
+
 def phase_int8_kernel() -> list:
     g = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda", 0)
@@ -887,6 +953,15 @@ def phase_int8_kernel() -> list:
             ok = err <= 1 and frac < INT8_FRAC
         ms = cuda_ms(lambda: k8.decode_stage_int8(x_q, p, "swish", "tanh"))
         plain_ms = cuda_ms(lambda: k8.decode_stage_int8_reference(x_q, p, "swish", "tanh"))
+        beside = {}
+        if p.route == "wgmma":
+            # the WMMA kernel (this shape's kernel before the wgmma one) and
+            # the bf16 wgmma kernel on the same shape, in the same run
+            old = torch.empty_like(out)
+            beside["wmma_ms"] = cuda_ms(int8_wmma_run(x_q, p, old))
+            torch.cuda.synchronize()
+            beside["wmma_max_abs_err"] = (old.float() - ref.float()).abs().max().item()
+            beside["bf16_kernel_ms"] = bf16_stage_ms(SERVE_BATCH, h, w, cin, c, s, head, g)
         # bound: the conv's operations on the int8 tensor cores (the head's
         # f32 product is 0.3% of them) against the int8 input, the weights
         # and the output crossing device memory once
@@ -894,13 +969,17 @@ def phase_int8_kernel() -> list:
                          x_q.numel() + 9 * cin * cout + nbytes(out), "int8")
         log(f"[int8-kernel] {name:12s} x_q[{SERVE_BATCH},{h},{w},{cin}] s={s} -> "
             f"{list(out.shape)} {str(out.dtype).replace('torch.', '')}: max|d|={err:.3e}, "
-            f"share differing {frac:.3e} (tol {tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}) {'ok' if ok else 'FAIL'}")
+            f"share differing {frac:.3e} (tol {tol}) {p.route} kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})"
+            + (f", WMMA kernel {beside['wmma_ms']:.3f} ms with max|d|="
+               f"{beside['wmma_max_abs_err']:.3e}, bf16 wgmma kernel on this shape "
+               f"{beside['bf16_kernel_ms']:.3f} ms" if beside else "")
+            + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at {name}")
-        rows.append({"shape": name, "in": [SERVE_BATCH, h, w, cin], "out": list(out.shape),
-                     "max_abs_err": err, "share_differing": frac, "tol": tol,
-                     "ms": ms, "plain_ms": plain_ms, **bound})
+        rows.append({"shape": name, "route": p.route, "in": [SERVE_BATCH, h, w, cin],
+                     "out": list(out.shape), "max_abs_err": err, "share_differing": frac,
+                     "tol": tol, "ms": ms, "plain_ms": plain_ms, **bound, **beside})
         del x_q, out, ref, diff, p
         torch.cuda.empty_cache()
     return rows
@@ -998,11 +1077,14 @@ def phase_compress(tmp: str) -> dict:
     serve = decode_main.main([rnvb, "--frames", str(SERVE_FRAMES), "--batch", str(SERVE_BATCH),
                               "--decode_int8"])
     counts = launch_counts()  # ... and ends here
+    k2_routes = dict(k8.ROUTE_LAUNCHES)
     per = 2 * n_batches * (1 + DECODE_REPS)
     log(f"[compress] decode_main --decode_int8 -> {serve}; launches {counts} (expect "
-        f"{per} K1 and {per} K2: 2 + 2 per batch)")
+        f"{per} K1 and {per} K2: 2 + 2 per batch), K2 by route {k2_routes} (expect all wgmma)")
     if counts["K1"] != per or counts["K2"] != per:
         raise AssertionError(f"int8 serving launched {counts}, expected {per} K1 and {per} K2")
+    if k2_routes != {"wmma": 0, "wgmma": per}:
+        raise AssertionError(f"int8 serving: K2 launches by route {k2_routes}")
 
     dev = torch.device("cuda", 0)
     st, acfg, _ = read_bitstream(rnvb)
@@ -1040,7 +1122,8 @@ def phase_compress(tmp: str) -> dict:
         f"path {serve['fps']:.2f}, {base.cfg.compute_dtype} K1 path {bf16_fps:.2f}, int8 plain "
         f"path {plain_fps:.2f}")
     results["serve_int8"] = {
-        "launches": counts, "fps": serve["fps"], "bf16_fps": bf16_fps, "plain_fps": plain_fps,
+        "launches": counts, "k2_route_launches": k2_routes, "fps": serve["fps"],
+        "bf16_fps": bf16_fps, "plain_fps": plain_fps,
         "frames_max_abs_err": err, "frames_mean_abs_err": mean_err,
         "compute_dtype": base.cfg.compute_dtype,
     }
@@ -1064,24 +1147,32 @@ def main() -> None:
             raise AssertionError(f"the port imported {name}")
 
     def yardsticks(rows: list) -> dict:
-        """bound_ms / bound_by / library_ms of a kernel over its main-path rows."""
+        """bound_ms / bound_by / library_ms of a kernel over its main-path
+        rows, and over its rows on a wgmma route their time beside the time
+        of the kernel that ran them before (WMMA, or FMA in f32)."""
         out = sum_bounds(rows)
-        for key in ("library_ms", "library_tf32_ms", "bound_3xtf32_ms", "wmma_ms"):
+        for key in ("library_ms", "library_tf32_ms", "bf16_kernel_ms"):
             have = [r[key] for r in rows if key in r]
             if have:
-                # wmma_ms: only the rows on the wgmma route have it
-                out[key if key != "wmma_ms" else "wgmma_rows_wmma_ms"] = sum(have)
+                out[key] = sum(have)
         out.setdefault("library_ms", None)
-        if "wgmma_rows_wmma_ms" in out:
-            out["wgmma_rows_ms"] = sum(r["ms"] for r in rows if "wmma_ms" in r)
+        for old in ("wmma", "fma"):
+            mine = [r for r in rows if f"{old}_ms" in r]
+            if mine:
+                out["wgmma_rows_ms"] = sum(r["ms"] for r in mine)
+                out[f"wgmma_rows_{old}_ms"] = sum(r[f"{old}_ms"] for r in mine)
+                if old == "fma":  # what bounded those rows on the FMA pipes
+                    out["wgmma_rows_bound_fma_ms"] = sum(r["bound_fma_ms"] for r in mine)
+                    out["wgmma_rows_fma_max_abs_err"] = max(r["fma_max_abs_err"] for r in mine)
+                    out["wgmma_rows_max_abs_err"] = max(r["max_abs_err"] for r in mine)
         return out
 
     def stage_sources(dname: str) -> dict:
-        # bf16: blocks 2-4 run decode_wgmma.cu, block 1 (Cin 26) decode.cu's WMMA kernel
-        if dname == "bfloat16":
-            return {"source": "repnerv_tpu_torch/csrc/decode_wgmma.cu",
-                    "other_sources": ["repnerv_tpu_torch/csrc/decode.cu"]}
-        return {"source": "repnerv_tpu_torch/csrc/decode.cu"}
+        # blocks 2-4 run the type's wgmma kernel, block 1 (Cin 26) decode.cu's WMMA / FMA kernel
+        wgmma = "decode_wgmma.cu" if dname == "bfloat16" else "decode_wgmma_tf32.cu"
+        return {"source": f"repnerv_tpu_torch/csrc/{wgmma}",
+                "other_sources": ["repnerv_tpu_torch/csrc/stage_wgmma.cuh",
+                                  "repnerv_tpu_torch/csrc/decode.cu"]}
 
     kernels = []
     for dname, rows in kernel_rows.items():
@@ -1102,7 +1193,7 @@ def main() -> None:
             "serve": serve[dname],
         })
     sources = {
-        "K3": ("stage_forward", "repnerv_tpu_torch/csrc/decode.cu",
+        "K3": ("stage_forward", None,  # stage_sources
                "repnerv_tpu/pallas_kernels/train_tail.py:83"),
         "K4": ("epilogue_backward", "repnerv_tpu_torch/csrc/train_tail.cu",
                "repnerv_tpu/pallas_kernels/train_tail.py:263"),
@@ -1137,7 +1228,10 @@ def main() -> None:
     main_rows = [r for r in int8_rows if r["shape"] in INT8_MAIN_PATH_SHAPES]
     kernels.append({
         "name": "fused_conv_ps_act_int8[int8]", "route": "cuda",
-        "source": "repnerv_tpu_torch/csrc/decode_int8.cu",
+        # blocks 3-4 run the wgmma s8 kernel; decode_int8.cu's WMMA kernel keeps the other shapes
+        "source": "repnerv_tpu_torch/csrc/decode_wgmma_s8.cu",
+        "other_sources": ["repnerv_tpu_torch/csrc/stage_wgmma.cuh",
+                          "repnerv_tpu_torch/csrc/decode_int8.cu"],
         "replaces": "repnerv_tpu/pallas_kernels/decode_int8.py:78",
         "launches": compress["serve_int8"]["launches"]["K2"],
         # int8 outputs in counts, the head's in f32
@@ -1146,6 +1240,7 @@ def main() -> None:
         "ms": sum(r["ms"] for r in main_rows),
         "plain_ms": sum(r["plain_ms"] for r in main_rows),
         **yardsticks(main_rows),
+        "shape_routes": {r["shape"]: r["route"] for r in int8_rows},
         "shapes": int8_rows,
         "serve": compress["serve_int8"],
     })
@@ -1155,8 +1250,13 @@ def main() -> None:
         log(f"[kernels] {k['name']}: {k['ms']:.3f} ms, bound {k['bound_ms']:.3f} ms by "
             f"{k['bound_by']} ({share:.1%} of it reached), plain {k['plain_ms']:.3f} ms, "
             f"library {lib}, launches {k['launches']}"
-            + (f"; rows on the wgmma route {k['wgmma_rows_ms']:.3f} ms, the WMMA kernel on the "
-               f"same rows {k['wgmma_rows_wmma_ms']:.3f} ms" if "wgmma_rows_ms" in k else ""))
+            + "".join(f"; rows on the wgmma route {k['wgmma_rows_ms']:.3f} ms, the "
+                      f"{old.upper()} kernel on the same rows {k[f'wgmma_rows_{old}_ms']:.3f} ms"
+                      for old in ("wmma", "fma") if f"wgmma_rows_{old}_ms" in k)
+            + (f" (max|d| {k['wgmma_rows_max_abs_err']:.3e} against the FMA kernel's "
+               f"{k['wgmma_rows_fma_max_abs_err']:.3e})" if "wgmma_rows_fma_ms" in k else "")
+            + (f", the bf16 wgmma kernel {k['bf16_kernel_ms']:.3f} ms" if "bf16_kernel_ms" in k
+               else ""))
     log("[train] summary " + json.dumps(train))
     log("[compress] summary " + json.dumps(compress))
     print(json.dumps({"kernels": kernels}))

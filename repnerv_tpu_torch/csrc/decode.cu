@@ -22,11 +22,12 @@
 //
 // What bounds it: at the 720p stage 4 shape (360x640x96 -> 720x1280x96) the
 // conv is ~2,800 FLOP per byte of device memory moved, so the kernel is
-// compute-bound: the tensor cores for bf16, the FMA pipes for f32.  bf16
-// stages whose channel counts allow it run the wgmma + TMA kernel of
-// decode_wgmma.cu (route 2 below); the two kernels here take f32 and the
-// remaining bf16 shapes (Cin or C not a multiple of 8, C above 96, a head wider
-// than 4).  Both are plain shared-memory implicit GEMMs (no TMA, no wgmma, no
+// compute-bound, and the tensor cores are the unit to use.  Stages whose
+// channel counts allow it run the wgmma + TMA kernels of decode_wgmma.cu (bf16,
+// route 2 below) and decode_wgmma_tf32.cu (f32 as three TF32 products, route
+// 3); the two kernels here take the remaining shapes (Cin not a multiple of 8
+// in bf16 or of 4 in f32, C not a multiple of 8 or above 96, a head wider than
+// 4: block 1 of the flagship, Cin 26).  Both are plain shared-memory implicit GEMMs (no TMA, no wgmma, no
 // warp specialisation): one block computes BM output pixels x one chunk of
 // one sub-pixel's channels, stepping over K one tap and one slice of input
 // channels at a time, with the next slices' loads in flight during the math.
@@ -463,6 +464,13 @@ int launch_stage(int route, const void* x, const void* w, const void* wt, const 
   if (route == 2)
     return repnerv::launch_stage_wgmma(x, wt, b, head_w, head_b, out, z, B, H, W, Cin, C, s, act,
                                        c_final, sigmoid_squash, st);
+  if (route == 3) {
+    if (wt == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    // wt holds the high parts [Cout, 9*Cin], then the low parts
+    const float* lo = static_cast<const float*>(wt) + (size_t)s * s * C * 9 * Cin;
+    return repnerv::launch_stage_wgmma_tf32(x, wt, lo, b, head_w, head_b, out, z, B, H, W, Cin, C,
+                                            s, act, c_final, sigmoid_squash, st);
+  }
   Stage stage{B, H, W, Cin, C, s, act, c_final, sigmoid_squash, 1, 1};
   if (route == 0) {
     // the smallest channel tile that holds C (the flagship's C = 96 fills one
@@ -480,8 +488,10 @@ int launch_stage(int route, const void* x, const void* w, const void* wt, const 
 }  // namespace
 
 // route: 0 = float32 on the FMA pipes, 1 = bfloat16 WMMA, 2 = bfloat16 wgmma +
-// TMA (x and w in that type).  w is the operand [9*Cin, Cout] of routes 0 and
-// 1, wt its K-major copy [Cout, 9*Cin] of route 2; the other may be null.
+// TMA, 3 = float32 as three TF32 wgmma products + TMA (x and w in that type).
+// w is the operand [9*Cin, Cout] of routes 0 and 1; wt is its K-major copy
+// [Cout, 9*Cin] of route 2, or that copy's two TF32 parts [2, Cout, 9*Cin] of
+// route 3; the one a route does not read may be null.
 // c_final = 0: no head, out in the compute dtype; c_final > 0: fused head, out
 // float32.  Returns the cudaError_t of the launch.
 extern "C" int repnerv_fused_conv_ps_act(int route, const void* x, const void* w,

@@ -21,8 +21,11 @@
 //
 // What bounds it: the flagship's block 4 (360x640x96 -> 720x1280x96 at stride
 // 2) is ~2,800 int8 operations per byte of device memory moved, so the kernel
-// is bound by the tensor cores' int8 rate.  This first kernel is the K1 bf16
-// design with int8 operands: a plain shared-memory implicit GEMM, one block
+// is bound by the tensor cores' int8 rate.  Stages whose channel counts allow
+// it (Cin % 16 == 0, Cin <= 128, C % 8 == 0, C <= 96, head <= 4: the
+// flagship's blocks 3-4) run the wgmma + TMA kernel of decode_wgmma_s8.cu
+// (route 1 below); the kernel here takes the remaining shapes.  It is the
+// first K1 bf16 design with int8 operands: a plain shared-memory implicit GEMM, one block
 // computing BM = 128 output pixels x one chunk of BN = 96 channels of one
 // sub-pixel, 8 warps of 32 x 48 WMMA 16x16x16 signed-char fragments with int32
 // accumulators, fed by a 3-stage cp.async ring (BK = 32 input channels of one
@@ -289,16 +292,26 @@ cudaError_t launch_vec(const void* x, const void* w, const float* scale, const f
 
 }  // namespace
 
+// route: 0 = the WMMA kernel here, which reads w [9*Cin, Cout]; 1 = the wgmma +
+// TMA kernel, which reads its K-major copy wt [Cout, 9*Cin]; the one a route
+// does not read may be null.  The caller names the route
+// (kernels/decode_int8.py::int8_route); a route that cannot take the shape is
+// an error, never another kernel.
 // c_final = 0: requantize to int8 with *inv_out (device pointer, one f32);
 // c_final > 0: fused head + squash, out float32, inv_out unused.  Returns the
 // cudaError_t of the launch.
-extern "C" int repnerv_fused_conv_ps_act_int8(const void* x, const void* w, const float* scale,
+extern "C" int repnerv_fused_conv_ps_act_int8(int route, const void* x, const void* w,
+                                              const void* wt, const float* scale,
                                               const float* bias, const float* inv_out,
                                               const float* head_w, const float* head_b,
                                               void* out, int B, int H, int W, int Cin, int C,
                                               int s, int act, int c_final, int sigmoid_squash,
                                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1)
+    return repnerv::launch_stage_wgmma_s8(x, wt, scale, bias, inv_out, head_w, head_b, out, B, H,
+                                          W, Cin, C, s, act, c_final, sigmoid_squash, st);
+  if (route != 0 || w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Stage stage{B, H, W, Cin, C, s, act, c_final, sigmoid_squash, 1, 1};
   if (c_final > 0)
     return launch_vec<true>(x, w, scale, bias, inv_out, head_w, head_b, out, stage, st);

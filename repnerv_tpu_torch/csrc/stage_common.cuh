@@ -1,6 +1,7 @@
-// What the fused decode-stage kernels (decode.cu, decode_wgmma.cu,
-// decode_int8.cu) share: the problem description, the index arithmetic of the
-// SAME halo and of the pixel-shuffled store, and the launch grid.
+// What the fused decode-stage kernels (decode.cu, decode_int8.cu and the
+// wgmma kernels of stage_wgmma.cuh) share: the problem description, the index
+// arithmetic of the SAME halo and of the pixel-shuffled store, the launch
+// grid, and the wgmma kernels' launchers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,10 +45,22 @@ inline dim3 grid_for(Stage& st, int bm, int bn) {
   return dim3((unsigned)((M + bm - 1) / bm), (unsigned)(st.s * st.s * st.chunk_groups));
 }
 
-// The wgmma + TMA bf16 stage kernel (decode_wgmma.cu); returns the cudaError_t.
+// The wgmma + TMA stage kernels, one source per operand type; each returns the
+// cudaError_t and refuses (cudaErrorInvalidValue) a shape it does not take.
+// bf16 (decode_wgmma.cu): wt the K-major weights [s*s*C, 9*Cin]
 int launch_stage_wgmma(const void* x, const void* wt, const float* b, const float* head_w,
                        const float* head_b, void* out, void* z, int B, int H, int W, int Cin,
                        int C, int s, int act, int c_final, int sigmoid_squash,
                        cudaStream_t stream);
+// f32 as three TF32 products (decode_wgmma_tf32.cu): wt split into hi and lo
+int launch_stage_wgmma_tf32(const void* x, const void* wt_hi, const void* wt_lo, const float* b,
+                            const float* head_w, const float* head_b, void* out, void* z, int B,
+                            int H, int W, int Cin, int C, int s, int act, int c_final,
+                            int sigmoid_squash, cudaStream_t stream);
+// int8 (decode_wgmma_s8.cu)
+int launch_stage_wgmma_s8(const void* x, const void* wt, const float* scale, const float* bias,
+                          const float* inv_out, const float* head_w, const float* head_b,
+                          void* out, int B, int H, int W, int Cin, int C, int s, int act,
+                          int c_final, int sigmoid_squash, cudaStream_t stream);
 
 }  // namespace repnerv

@@ -112,9 +112,9 @@ def load_library() -> ctypes.CDLL:
             lib.repnerv_fused_conv_ps_act.argtypes = [i, *[p] * 7, *[i] * 9, p]
             # ... the same with z after out
             lib.repnerv_train_stage_fwd.argtypes = [i, *[p] * 8, *[i] * 9, p]
-            # x_q, w_q, scale, bias, inv_out, head_w, head_b, out, B, H, W,
-            # Cin, C, s, act, c_final, sigmoid_squash, stream
-            lib.repnerv_fused_conv_ps_act_int8.argtypes = [*[p] * 8, *[i] * 9, p]
+            # route, x_q, w_q, wt_q, scale, bias, inv_out, head_w, head_b, out,
+            # B, H, W, Cin, C, s, act, c_final, sigmoid_squash, stream
+            lib.repnerv_fused_conv_ps_act_int8.argtypes = [i, *[p] * 9, *[i] * 9, p]
             # dtype, z, ct, ct_head, out, hw, d_conv, db_part, dhw_part,
             # dhb_part, B, H, W, C, s, act, c_final, sigmoid_squash, tile, stream
             lib.repnerv_train_stage_bwd.argtypes = [i, *[p] * 9, *[i] * 9, p]

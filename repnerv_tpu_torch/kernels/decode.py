@@ -3,18 +3,22 @@
 
 On a CUDA tensor, ``decode_stage`` launches a hand-written Hopper kernel and
 nothing else: a launch that fails raises.  Which kernel is ``stage_route``'s
-answer, a pure function of the stage's type and channel counts: bf16 stages
-with Cin and C in multiples of 8 run the wgmma + TMA kernel of
-``csrc/decode_wgmma.cu``, the other bf16 shapes the WMMA kernel and f32 the
-FMA kernel of ``csrc/decode.cu``.  On a CPU tensor it runs the plain PyTorch
-version, ``decode_stage_reference``, which the tests also hold the kernel and
-the JAX kernel against.
+answer, a pure function of the stage's type and channel counts.  Stages with
+C in multiples of 8 up to 96 and a head of at most 4 outputs run the wgmma +
+TMA mainloop of ``csrc/stage_wgmma.cuh``: bf16 with Cin % 8 == 0 through
+``csrc/decode_wgmma.cu`` (``"wgmma"``), f32 with Cin % 4 == 0 through
+``csrc/decode_wgmma_tf32.cu`` (``"wgmma_tf32x3"``: each f32 product as three
+TF32 tensor-core products, see ``split_tf32``).  The other shapes run
+``csrc/decode.cu``: bf16 its WMMA kernel, f32 its FMA kernel.  On a CPU tensor
+it runs the plain PyTorch version, ``decode_stage_reference``, which the tests
+also hold the kernel and the JAX kernel against.
 
 The weights go into the kernel's layout once (``pack_weights``): an
 implicit-GEMM operand [9*Cin, Cout] in the compute dtype whose columns are
 in shuffle-major order, so one sub-pixel's C channels are contiguous and
-pixel shuffle becomes the store's index arithmetic; stages on the wgmma route
-also get its K-major copy [Cout, 9*Cin].  ``fused_conv_ps_act``
+pixel shuffle becomes the store's index arithmetic; stages on a wgmma route
+also get its K-major copy [Cout, 9*Cin], in f32 split into its two TF32 parts
+[2, Cout, 9*Cin].  ``fused_conv_ps_act``
 keeps the JAX function's signature and layouts (x NHWC, w HWIO in
 PixelShuffle channel order) and packs on every call.
 """
@@ -36,9 +40,9 @@ from .build import load_library
 # kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 LAUNCHES = 0
 # ... and the same launches by the route they took
-ROUTES = ("fma", "wmma", "wgmma")  # the index is the code csrc/decode.cu takes
+ROUTES = ("fma", "wmma", "wgmma", "wgmma_tf32x3")  # the index is the code csrc/decode.cu takes
 ROUTE_LAUNCHES: Dict[str, int] = dict.fromkeys(ROUTES, 0)
-# what the wgmma kernel holds in registers and shared memory
+# what the wgmma kernels hold in registers and shared memory
 _WGMMA_MAX_C = 96
 _WGMMA_MAX_HEAD = 4
 
@@ -55,19 +59,41 @@ ACT_CODES = {
     "hardswish": 8,
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# route -> the shape of PackedStage.wt for a packed operand [K, Cout]
+_WT_SHAPE = {"wgmma": lambda cout, k: (cout, k), "wgmma_tf32x3": lambda cout, k: (2, cout, k)}
 _INT32_MAX = 2**31 - 1
 
 
 def stage_route(dtype: torch.dtype, cin: int, c: int, stride: int, c_final: int) -> str:
-    """Which kernel a stage runs: ``"fma"`` (f32, CUDA cores), ``"wmma"`` or
-    ``"wgmma"`` (bf16).  The wgmma kernel loads its tiles by TMA, whose strides
-    are multiples of 16 bytes (Cin % 8 == 0); it stores channel pairs and
-    holds one sub-pixel's channels in one tile (C % 8 == 0, C <= 96) and a
-    head of at most 4 outputs; every stride takes it."""
-    if dtype != torch.bfloat16:
-        return "fma"
-    fits = cin % 8 == 0 and c % 8 == 0 and 0 < c <= _WGMMA_MAX_C and c_final <= _WGMMA_MAX_HEAD
-    return "wgmma" if fits else "wmma"
+    """Which kernel a stage runs: ``"wgmma"`` or ``"wmma"`` (bf16),
+    ``"wgmma_tf32x3"`` or ``"fma"`` (f32).  The wgmma kernels load their tiles
+    by TMA, whose strides are multiples of 16 bytes (Cin % 8 == 0 in bf16,
+    Cin % 4 == 0 in f32); they store channel pairs and hold one sub-pixel's
+    channels in one tile (C % 8 == 0, C <= 96) and a head of at most 4
+    outputs; every stride takes them."""
+    fits = c % 8 == 0 and 0 < c <= _WGMMA_MAX_C and c_final <= _WGMMA_MAX_HEAD
+    if dtype == torch.bfloat16:
+        return "wgmma" if fits and cin % 8 == 0 else "wmma"
+    return "wgmma_tf32x3" if fits and cin > 0 and cin % 4 == 0 else "fma"
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 number (10 mantissa bits, ties away from zero:
+    ``cvt.rna.tf32.f32``) as f32 with the low 13 bits clear.  Integer
+    arithmetic on the bits, on ``v``'s device."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (hi, lo), both TF32 numbers: ``hi = tf32_round(v)``, ``lo =
+    tf32_round(v - hi)``.  ``v - hi`` is exact in f32, so ``hi + (v - hi) ==
+    v`` to the bit and ``|v - (hi + lo)| <= 2^-22 |v|``.  The f32 wgmma kernel
+    sums ``a_lo * b_hi + a_hi * b_lo + a_hi * b_hi``: each product of two TF32
+    numbers is exact in the tensor core, whatever it does with the low 13
+    bits, and what is dropped is ~2^-22 of ``a * b``."""
+    hi = tf32_round(v)
+    return hi, tf32_round(v - hi)
 
 
 def shuffle_weight_permutation(cout: int, stride: int, device=None) -> torch.Tensor:
@@ -90,7 +116,9 @@ class PackedStage:
     stride: int
     head_w: Optional[torch.Tensor] = None  # [C, c_final] f32
     head_b: Optional[torch.Tensor] = None  # [c_final] f32
-    wt: Optional[torch.Tensor] = None  # [Cout, 9*Cin]: w transposed, on the wgmma route only
+    # w transposed, on the wgmma routes only: [Cout, 9*Cin] bf16, or its two
+    # TF32 parts (split_tf32) [2, Cout, 9*Cin] f32
+    wt: Optional[torch.Tensor] = None
 
     @property
     def c_final(self) -> int:
@@ -137,9 +165,11 @@ def pack_weights(
             else torch.zeros(hw.shape[1], device=w.device)
         ).contiguous()
     p = PackedStage(w2, b2, stride, hw, hb)
-    if p.route != "wgmma":
-        return p
-    return dataclasses.replace(p, wt=w2.t().contiguous())
+    if p.route == "wgmma":
+        return dataclasses.replace(p, wt=w2.t().contiguous())
+    if p.route == "wgmma_tf32x3":
+        return dataclasses.replace(p, wt=torch.stack(split_tf32(w2.t().contiguous())))
+    return p
 
 
 @contextlib.contextmanager
@@ -197,9 +227,11 @@ def check_stage_args(
     s = p.stride
     c_final = p.c_final
     tensors = [x, p.w, p.b] + ([p.head_w, p.head_b] if c_final else [])
-    if p.route == "wgmma":
-        if p.wt is None or p.wt.shape != (p.w.shape[1], p.w.shape[0]) or p.wt.dtype != p.w.dtype:
-            raise ValueError(f"{name}: the wgmma route needs the K-major weights (pack_weights)")
+    if p.route in _WT_SHAPE:
+        want = _WT_SHAPE[p.route](p.w.shape[1], p.w.shape[0])
+        if p.wt is None or tuple(p.wt.shape) != want or p.wt.dtype != p.w.dtype:
+            raise ValueError(f"{name}: the {p.route} route needs the K-major weights "
+                             f"{want} (pack_weights)")
         tensors.append(p.wt)
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: x and the packed weights must share a device")
@@ -263,7 +295,7 @@ def launch_stage_kernel(
     pointers = [
         ptr(x.data_ptr()),
         ptr(p.w.data_ptr()),
-        ptr(p.wt.data_ptr() if route == "wgmma" else None),
+        ptr(p.wt.data_ptr() if route in _WT_SHAPE else None),
         ptr(p.b.data_ptr()),
         ptr(p.head_w.data_ptr() if c_final else None),
         ptr(p.head_b.data_ptr() if c_final else None),

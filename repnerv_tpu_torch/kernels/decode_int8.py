@@ -2,11 +2,15 @@
 PixelShuffle -> requant to int8 (or the 1x1 head + squash), the port of
 ``repnerv_tpu/pallas_kernels/decode_int8.py``.
 
-On a CUDA tensor, ``decode_stage_int8`` launches the hand-written Hopper
-kernel in ``csrc/decode_int8.cu`` and nothing else: a launch that fails
-raises.  On a CPU tensor it runs the plain PyTorch version,
-``decode_stage_int8_reference``, which the tests also hold the kernel and the
-JAX kernel against.
+On a CUDA tensor, ``decode_stage_int8`` launches a hand-written Hopper
+kernel and nothing else: a launch that fails raises.  Which kernel is
+``int8_route``'s answer, a pure function of the channel counts: stages with
+Cin % 16 == 0, Cin <= 128, C % 8 == 0, C <= 96 and a head of at most 4
+outputs (the flagship's blocks 3-4) run the wgmma + TMA kernel of
+``csrc/decode_wgmma_s8.cu`` (``"wgmma"``), the other shapes the WMMA kernel of
+``csrc/decode_int8.cu`` (``"wmma"``).  On a CPU tensor it runs the plain
+PyTorch version, ``decode_stage_int8_reference``, which the tests also hold
+the kernels and the JAX kernel against.
 
 The scheme is the JAX package's (symmetric, no zero point, so SAME-padding
 zeros stay exact), with its cast and rounding points, which the tests rely
@@ -29,15 +33,17 @@ on:
 ``pack_int8_stage`` puts a stage into the kernel's layout once per
 calibration: the int8 implicit-GEMM operand [9*Cin, Cout] (rows (dy, dx,
 ci), columns in shuffle-major order, ``decode.shuffle_weight_permutation``)
-with ``scale`` and ``bias`` permuted the same way.  ``fused_conv_ps_act_int8``
+with ``scale`` and ``bias`` permuted the same way, and on the wgmma route its
+K-major copy [Cout, 9*Cin].  ``fused_conv_ps_act_int8``
 keeps the JAX function's signature and packs on every call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,8 +54,26 @@ from .decode import ACT_CODES, exact_f32, shuffle_weight_permutation, squash
 
 # kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 LAUNCHES = 0
+# ... and the same launches by the route they took
+ROUTES = ("wmma", "wgmma")  # the index is the code csrc/decode_int8.cu takes
+ROUTE_LAUNCHES: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+# what the wgmma kernel holds in one ring slot, in registers and shared memory
+_WGMMA_MAX_CIN = 128
+_WGMMA_MAX_C = 96
+_WGMMA_MAX_HEAD = 4
 
 _INT32_MAX = 2**31 - 1
+
+
+def int8_route(cin: int, c: int, c_final: int) -> str:
+    """Which kernel an int8 stage runs.  The wgmma kernel loads one whole
+    pixel (up to 128 channels) as one 128-byte row by TMA, whose strides are
+    multiples of 16 bytes (Cin % 16 == 0, Cin <= 128); it stores 8 channels a
+    lane and holds one sub-pixel's channels in one tile (C % 8 == 0, C <= 96)
+    and a head of at most 4 outputs; every stride takes it."""
+    fits = (cin % 16 == 0 and 0 < cin <= _WGMMA_MAX_CIN and c % 8 == 0
+            and 0 < c <= _WGMMA_MAX_C and c_final <= _WGMMA_MAX_HEAD)
+    return "wgmma" if fits else "wmma"
 
 
 def quantize_weight_int8(w: torch.Tensor):
@@ -77,6 +101,15 @@ class PackedInt8Stage:
     inv_out: Optional[torch.Tensor] = None  # [1] f32, 1/out_scale: requantize
     head_w: Optional[torch.Tensor] = None  # [C, c_final] f32: fused head
     head_b: Optional[torch.Tensor] = None  # [c_final] f32
+    wt: Optional[torch.Tensor] = None  # [Cout, 9*Cin] int8: w transposed, on the wgmma route only
+
+    @property
+    def c_final(self) -> int:
+        return 0 if self.head_w is None else self.head_w.shape[1]
+
+    @property
+    def route(self) -> str:
+        return int8_route(self.cin, self.c, self.c_final)
 
     @property
     def cin(self) -> int:
@@ -116,12 +149,17 @@ def pack_int8_stage(
     b2 = bias.to(torch.float32)[perm].contiguous()
     if head_w is None:
         inv_out = (1.0 / torch.as_tensor(out_scale, dtype=torch.float32, device=dev)).reshape(1)
-        return PackedInt8Stage(w2, scale2, b2, stride, inv_out=inv_out)
-    hw = head_w[0, 0].to(torch.float32).contiguous()
-    hb = (
-        head_b.to(torch.float32) if head_b is not None else torch.zeros(hw.shape[1], device=dev)
-    ).contiguous()
-    return PackedInt8Stage(w2, scale2, b2, stride, head_w=hw, head_b=hb)
+        p = PackedInt8Stage(w2, scale2, b2, stride, inv_out=inv_out)
+    else:
+        hw = head_w[0, 0].to(torch.float32).contiguous()
+        hb = (
+            head_b.to(torch.float32) if head_b is not None
+            else torch.zeros(hw.shape[1], device=dev)
+        ).contiguous()
+        p = PackedInt8Stage(w2, scale2, b2, stride, head_w=hw, head_b=hb)
+    if p.route != "wgmma":
+        return p
+    return dataclasses.replace(p, wt=w2.t().contiguous())
 
 
 def int_conv3x3(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -167,13 +205,19 @@ def check_int8_args(x_q: torch.Tensor, p: PackedInt8Stage, act: str, out_squash:
     """Raise on what the kernel does not take; return the head width (0
     without a head)."""
     bsz, h, w, cin = x_q.shape
-    c_final = 0 if p.head_w is None else p.head_w.shape[1]
+    c_final = p.c_final
     tensors = [x_q, p.w, p.scale, p.b] + ([p.head_w, p.head_b] if c_final else [p.inv_out])
+    if p.route == "wgmma":
+        if (p.wt is None or p.wt.shape != (p.w.shape[1], p.w.shape[0])
+                or p.wt.dtype != torch.int8):
+            raise ValueError("decode_stage_int8: the wgmma route needs the K-major weights "
+                             "(pack_int8_stage)")
+        tensors.append(p.wt)
     if any(t.device != x_q.device for t in tensors):
         raise ValueError("decode_stage_int8: x_q and the packed stage must share a device")
     if x_q.dtype != torch.int8 or p.w.dtype != torch.int8:
         raise TypeError(f"decode_stage_int8: x_q is {x_q.dtype}, weights {p.w.dtype}; need int8")
-    if any(t.dtype != torch.float32 for t in tensors[2:]):
+    if any(t.dtype != torch.float32 for t in tensors[2:] if t is not p.wt):
         raise TypeError("decode_stage_int8: scale, bias, inv_out and the head must be f32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_stage_int8: x_q (NHWC) and the packed stage must be contiguous")
@@ -212,10 +256,13 @@ def decode_stage_int8(
         raise ValueError("decode_stage_int8: tensors must hold fewer than 2**31 elements")
     lib = load_library()  # builds csrc/*.cu on first use
     ptr = ctypes.c_void_p
+    route = p.route
     with torch.cuda.device(x_q.device):  # the runtime launches on the current device
         err = lib.repnerv_fused_conv_ps_act_int8(
+            ROUTES.index(route),
             ptr(x_q.data_ptr()),
             ptr(p.w.data_ptr()),
+            ptr(p.wt.data_ptr() if route == "wgmma" else None),
             ptr(p.scale.data_ptr()),
             ptr(p.b.data_ptr()),
             ptr(p.inv_out.data_ptr() if not c_final else None),
@@ -229,8 +276,9 @@ def decode_stage_int8(
             ptr(torch.cuda.current_stream(x_q.device).cuda_stream),
         )
     if err != 0:
-        raise RuntimeError(f"int8 stage kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"int8 stage kernel ({route}) launch failed: cudaError {err}")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

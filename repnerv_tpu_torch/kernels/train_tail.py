@@ -5,8 +5,10 @@ squash] with its backward, the port of
 Two kernels, each behind a wrapper that launches it on a CUDA tensor and
 runs its plain PyTorch version on a CPU tensor:
 
-* ``stage_forward`` (K3): the decode kernel (``csrc/decode.cu``, or
-  ``csrc/decode_wgmma.cu`` where ``stage_route`` says so) with one more store, the pre-activation ``z`` [B, H*s, W*s, C] in the compute dtype
+* ``stage_forward`` (K3): the decode kernel that ``stage_route`` names
+  (``csrc/decode_wgmma.cu`` for bf16 and ``csrc/decode_wgmma_tf32.cu`` for
+  f32 where the channel counts allow it, else ``csrc/decode.cu``) with one
+  more store, the pre-activation ``z`` [B, H*s, W*s, C] in the compute dtype
   (the JAX kernel's z5 [B, H, s, W, s*C] is the same bytes).
 * ``epilogue_backward`` (K4, ``csrc/train_tail.cu``): from ``z``, the
   cotangent and (with a head) the squashed output to ``d_conv`` [B, H, W,

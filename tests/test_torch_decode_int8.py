@@ -167,6 +167,65 @@ def test_pack_rejects_bad_modes():
         k8.decode_stage_int8(torch.zeros(1, 4, 4, 8, dtype=torch.int8, device="meta"), p)
 
 
+# (Cin, C, head width) of the 720p flagship's decode stages
+FLAGSHIP_STAGES = {
+    "stage0": (26, 26, 0),
+    "block1": (26, 96, 0),
+    "block2": (96, 96, 0),
+    "block3": (96, 96, 0),
+    "block4+head": (96, 96, 3),
+}
+
+
+@pytest.mark.parametrize("name", list(FLAGSHIP_STAGES))
+def test_int8_route_of_flagship_stages(name):
+    cin, c, c_final = FLAGSHIP_STAGES[name]
+    # Cin 26: 26-byte pixels, no TMA stride
+    assert k8.int8_route(cin, c, c_final) == ("wgmma" if cin == 96 else "wmma")
+
+
+@pytest.mark.parametrize(
+    "cin,c,c_final,want",
+    [
+        (16, 8, 0, "wgmma"),
+        (64, 40, 3, "wgmma"),
+        (128, 96, 4, "wgmma"),
+        (96, 96, 5, "wmma"),  # the head's outputs no longer fit four registers
+        (96, 104, 0, "wmma"),  # one sub-pixel's channels no longer fit one tile
+        (96, 44, 0, "wmma"),  # C not a multiple of 8
+        (24, 96, 0, "wmma"),  # Cin not a multiple of 16
+        (144, 96, 0, "wmma"),  # a pixel no longer fits one 128-byte row
+    ],
+)
+def test_int8_route_bounds(cin, c, c_final, want):
+    assert k8.int8_route(cin, c, c_final) == want
+    assert k8.ROUTES == ("wmma", "wgmma")  # the index is the code the C entry takes
+
+
+@pytest.mark.parametrize("head", [False, True])
+def test_pack_int8_stage_k_major_copy(head):
+    """The wgmma route's operand is the transpose of the WMMA kernel's, made
+    only on that route; the plain version never reads it."""
+    x_q, w_q, scale, b, hw, hb = _q_inputs(Cin=16, C=8, s=2, head=head)
+    kw = dict(head_w=_t(hw), head_b=_t(hb)) if head else dict(out_scale=torch.tensor(0.02))
+    p = k8.pack_int8_stage(_t(w_q), _t(scale), _t(b), 2, **kw)
+    assert p.route == "wgmma" and p.c_final == (3 if head else 0)
+    assert p.wt.is_contiguous() and p.wt.dtype == torch.int8
+    assert tuple(p.wt.shape) == (32, 9 * 16) and torch.equal(p.wt, p.w.t())
+    # row (i*s + j)*C + c of wt is output channel c*s*s + i*s + j of the HWIO weight
+    row = (1 * 2 + 0) * 8 + 5
+    assert torch.equal(p.wt[row].reshape(3, 3, 16), _t(w_q)[..., 5 * 4 + 2])
+    q = k8.pack_int8_stage(_t(w_q)[:, :, :12], _t(scale), _t(b), 2, **kw)  # Cin 12
+    assert q.route == "wmma" and q.wt is None
+    before = dict(k8.ROUTE_LAUNCHES)
+    out = k8.decode_stage_int8(_t(x_q), p, "swish", "tanh")
+    ref = k8.decode_stage_int8_reference(_t(x_q), dataclasses.replace(p, wt=None), "swish", "tanh")
+    assert k8.ROUTE_LAUNCHES == before  # a CPU tensor launches nothing
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="K-major"):
+        k8.check_int8_args(_t(x_q), dataclasses.replace(p, wt=None), "swish", "tanh")
+
+
 # ---------------------------------------------------------------------------
 # The generator: calibration, the int8 gate, decode_main
 # ---------------------------------------------------------------------------
@@ -369,12 +428,17 @@ def test_cuda_kernel_matches_plain(cuda, H, W, Cin, C, s, head):
     ref = k8.decode_stage_int8_reference(xin, p, "swish", head or "tanh")
     torch.cuda.synchronize()
     assert k8.LAUNCHES == before + 1
+    _assert_stage_close(out, ref, head)
+
+
+def _assert_stage_close(out, ref, head):
     assert out.dtype == ref.dtype and out.shape == ref.shape
     if head is None:
         # the same integer sums and f32 epilogue; expf's ulps may move a
         # value across a .5 boundary
         _assert_int8_close(out.cpu().numpy(), ref.cpu().numpy())
     else:
+        assert bool(torch.isfinite(out).all())
         assert (out - ref).abs().max().item() <= 1e-5  # head sum order over C
 
 
@@ -387,3 +451,96 @@ def test_cuda_kernel_activations(cuda, act):
     out = k8.decode_stage_int8(dev(x_q), p, act)
     ref = k8.decode_stage_int8_reference(dev(x_q), p, act)
     _assert_int8_close(out.cpu().numpy(), ref.cpu().numpy())
+
+
+# the wgmma kernel: B, H, W, Cin, C, s, head; H and W not multiples of any tile
+WGMMA_CASES = [
+    (2, 5, 13, 96, 96, 2, None),
+    (2, 5, 13, 96, 96, 2, "tanh"),
+    (1, 37, 70, 96, 96, 2, "sigmoid"),  # several tiles a side, ragged edges
+    (3, 9, 33, 32, 40, 2, None),  # C not 96: the 64-wide tile, masked channels
+    (2, 11, 19, 16, 8, 3, "tanh"),  # Cin under one product, 9 sub-pixels (odd)
+    (1, 4, 6, 80, 64, 1, None),  # stride 1: half of the pair is empty; Cin 80: a half-empty product
+    (1, 7, 20, 48, 24, 5, None),  # stride 5
+    (1, 6, 9, 128, 96, 2, None),  # a full 128-byte row: four products a slot
+    (2, 16, 32, 96, 96, 2, None),  # exact tiles
+    # many work items a block: the ring's barriers go round several times
+    (2, 90, 160, 96, 96, 2, None),
+    (1, 180, 320, 32, 96, 2, "tanh"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Cin,C,s,head", WGMMA_CASES)
+def test_cuda_wgmma_kernel_matches_plain(cuda, B, H, W, Cin, C, s, head):
+    x_q, w_q, scale, b, hw, hb = _q_inputs(B=B, H=H, W=W, Cin=Cin, C=C, s=s,
+                                          head=head is not None)
+    dev = lambda a: None if a is None else torch.from_numpy(np.asarray(a)).to(cuda)  # noqa: E731
+    p = k8.pack_int8_stage(dev(w_q), dev(scale), dev(b), s,
+                           out_scale=None if head else torch.tensor(0.013, device=cuda),
+                           head_w=dev(hw), head_b=dev(hb))
+    assert p.route == "wgmma"
+    xin = dev(x_q).contiguous()
+    before = dict(k8.ROUTE_LAUNCHES)
+    out = k8.decode_stage_int8(xin, p, "swish", head or "tanh")
+    ref = k8.decode_stage_int8_reference(xin, p, "swish", head or "tanh")
+    torch.cuda.synchronize()
+    assert k8.ROUTE_LAUNCHES["wgmma"] == before["wgmma"] + 1
+    assert k8.ROUTE_LAUNCHES["wmma"] == before["wmma"]
+    _assert_stage_close(out, ref, head)
+
+
+@pytest.mark.gpu
+def test_cuda_wgmma_kernel_integer_sums_are_exact(cuda):
+    """scale 1, bias 0, relu and inv_out 1 / 2^k leave the integer sums
+    readable in the output: full-range int8 inputs against the int64 conv."""
+    rng = np.random.default_rng(7)
+    cin, c, s = 96, 8, 2
+    x = rng.integers(-127, 128, (1, 5, 9, cin)).astype(np.int8)
+    w = rng.integers(-127, 128, (3, 3, cin, c * s * s)).astype(np.int8)
+    dev = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    ones = torch.ones(c * s * s, device=cuda)
+    p = k8.pack_int8_stage(dev(w), ones, None, s, out_scale=torch.tensor(2.0**17, device=cuda))
+    assert p.route == "wgmma"
+    out = k8.decode_stage_int8(dev(x), p, "relu")
+    ref = k8.decode_stage_int8_reference(dev(x), p, "relu")
+    assert bool((out != 0).any()) and torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", list(k8.ACT_CODES))
+def test_cuda_wgmma_kernel_activations(cuda, act):
+    x_q, w_q, scale, b, _, _ = _q_inputs(B=1, H=6, W=10, Cin=16, C=8, s=2, seed=3)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to(cuda)  # noqa: E731
+    p = k8.pack_int8_stage(dev(w_q), dev(scale), dev(b), 2, out_scale=torch.tensor(0.02, device=cuda))
+    assert p.route == "wgmma"
+    out = k8.decode_stage_int8(dev(x_q), p, act)
+    ref = k8.decode_stage_int8_reference(dev(x_q), p, act)
+    _assert_int8_close(out.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_wgmma_route_refuses_what_it_cannot_take(cuda):
+    """No fallback inside the library: the wgmma route handed Cin 24 (no TMA
+    stride) returns an error instead of launching the WMMA kernel."""
+    import ctypes
+
+    from repnerv_tpu_torch.kernels.build import load_library
+
+    x_q, w_q, scale, b, _, _ = _q_inputs(Cin=24, C=8, s=2)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to(cuda)  # noqa: E731
+    p = k8.pack_int8_stage(dev(w_q), dev(scale), dev(b), 2, out_scale=torch.tensor(0.02, device=cuda))
+    assert p.route == "wmma" and p.wt is None
+    wt = p.w.t().contiguous()
+    xin = dev(x_q)
+    out = torch.zeros(2, 12, 20, 8, device=cuda, dtype=torch.int8)
+    ptr = ctypes.c_void_p
+    err = load_library().repnerv_fused_conv_ps_act_int8(
+        k8.ROUTES.index("wgmma"), ptr(xin.data_ptr()), ptr(p.w.data_ptr()), ptr(wt.data_ptr()),
+        ptr(p.scale.data_ptr()), ptr(p.b.data_ptr()), ptr(p.inv_out.data_ptr()), ptr(None),
+        ptr(None), ptr(out.data_ptr()), 2, 6, 10, 24, 8, 2, k8.ACT_CODES["swish"], 0, 0,
+        ptr(torch.cuda.current_stream().cuda_stream),
+    )
+    torch.cuda.synchronize()
+    assert err != 0
+    assert not bool(out.any())  # nothing ran

@@ -193,9 +193,10 @@ FLAGSHIP_STAGES = {
 @pytest.mark.parametrize("name", list(FLAGSHIP_STAGES))
 def test_route_of_flagship_stages(name):
     cin, c, s, c_final = FLAGSHIP_STAGES[name]
-    want = "wgmma" if cin == 96 else "wmma"  # Cin 26: TMA cannot stride it
-    assert dk.stage_route(torch.bfloat16, cin, c, s, c_final) == want
-    assert dk.stage_route(torch.float32, cin, c, s, c_final) == "fma"
+    # Cin 26: TMA cannot stride it (52 bytes a pixel in bf16, 104 in f32)
+    want = ("wgmma", "wgmma_tf32x3") if cin == 96 else ("wmma", "fma")
+    assert dk.stage_route(torch.bfloat16, cin, c, s, c_final) == want[0]
+    assert dk.stage_route(torch.float32, cin, c, s, c_final) == want[1]
 
 
 @pytest.mark.parametrize(
@@ -215,6 +216,27 @@ def test_route_bounds(cin, c, c_final, want):
         assert dk.stage_route(torch.bfloat16, cin, c, stride, c_final) == want
 
 
+@pytest.mark.parametrize(
+    "cin,c,c_final,want",
+    [
+        (4, 8, 0, "wgmma_tf32x3"),
+        (12, 96, 0, "wgmma_tf32x3"),  # 48-byte pixels: a TMA stride, though not bf16's
+        (64, 40, 3, "wgmma_tf32x3"),
+        (96, 96, 4, "wgmma_tf32x3"),
+        (96, 96, 5, "fma"),  # the head's outputs no longer fit four registers
+        (96, 104, 0, "fma"),  # one sub-pixel's channels no longer fit one tile
+        (96, 44, 0, "fma"),  # C not a multiple of 8
+        (26, 96, 0, "fma"),  # Cin not a multiple of 4
+        (6, 8, 0, "fma"),
+    ],
+)
+def test_route_bounds_f32(cin, c, c_final, want):
+    for stride in (1, 2, 3, 5):
+        assert dk.stage_route(torch.float32, cin, c, stride, c_final) == want
+    assert dk.ROUTES.index("wgmma_tf32x3") == 3  # the codes csrc/decode.cu takes stay
+    assert dk.ROUTES[:3] == ("fma", "wmma", "wgmma")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pack_weights_k_major_copy(dtype):
     """The wgmma route's operand is the transpose of the present one, made
@@ -228,13 +250,50 @@ def test_pack_weights_k_major_copy(dtype):
         assert tuple(p.wt.shape) == (32, 9 * 16)
         assert torch.equal(p.wt, p.w.t())
     else:
-        assert p.route == "fma" and p.wt is None
-    q = dk.pack_weights(_t(w)[:, :, :12], _t(b), 2, dtype)  # Cin 12
+        # f32: the K-major copy split into two TF32 numbers per weight
+        assert p.route == "wgmma_tf32x3"
+        assert p.wt.is_contiguous() and p.wt.dtype == dtype
+        assert tuple(p.wt.shape) == (2, 32, 9 * 16)
+        hi, lo = p.wt
+        wk = p.w.t().contiguous()
+        for part in (hi, lo):  # the low 13 mantissa bits of both are zero
+            assert not bool((part.view(torch.int32) & 0x1FFF).any())
+        # hi is w to 10 mantissa bits (within half a TF32 ulp, 2^-11 |w|), in K-major order
+        assert bool(((hi - wk).abs() <= 2.0**-11 * wk.abs()).all())
+        # w - hi is exact in f32: hi and the unrounded low part give w back bit for bit
+        assert torch.equal(hi + (wk - hi), wk)
+        # ... and the stored low part is that difference to TF32: 2^-22 |w| is lost
+        assert bool(((hi.double() + lo.double()) - wk.double()).abs().le(2.0**-22 * wk.abs()).all())
+        assert bool((lo.abs() <= 2.0**-11 * wk.abs()).all())
+    q = dk.pack_weights(_t(w)[:, :, :13], _t(b), 2, dtype)  # Cin 13
     assert q.wt is None and q.route == ("wmma" if dtype == torch.bfloat16 else "fma")
     # the plain version never reads the copy
     out = dk.decode_stage(_t(x).to(dtype), p, "swish", "tanh")
     ref = dk.decode_stage_reference(_t(x).to(dtype), dataclasses.replace(p, wt=None), "swish", "tanh")
     assert torch.equal(out, ref)
+
+
+def test_three_tf32_products_reach_f32_accuracy():
+    """The f32 wgmma kernel's arithmetic, emulated in float64: operands split
+    by split_tf32, a_lo*b_hi + a_hi*b_lo + a_hi*b_hi summed over K = 864 (9
+    taps x 96 channels) with the smoke's input ranges (x ~ N(0, 1), w uniform
+    in +-K^-1/2).  Every product of two TF32 numbers is exact in the tensor
+    core (11 x 11 significant bits), so what separates the kernel from the
+    exact product is the dropped a_lo*b_lo and the low parts' rounding, ~2^-22
+    per term, and the f32 accumulation, which the card's run measures.
+    Tolerance: a tenth of the smoke's F32_ATOL (1e-4); one TF32 product alone
+    misses it by far, which is why it is not a port of an f32 kernel."""
+    rng = np.random.default_rng(5)
+    k, m, n = 864, 64, 48
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(-1, 1, (k, n)).astype(np.float32) * k**-0.5)
+    a_hi, a_lo = (t.double() for t in dk.split_tf32(a))
+    b_hi, b_lo = (t.double() for t in dk.split_tf32(b))
+    exact = a.double() @ b.double()
+    three = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    assert (three - exact).abs().max().item() < 1e-4 / 10
+    assert (three - exact).abs().max().item() < 1e-6  # what it does reach: ~1e-7
+    assert (a_hi @ b_hi - exact).abs().max().item() > 1e-4  # one TF32 product
 
 
 WGMMA_CASES = [
@@ -286,6 +345,87 @@ def test_cuda_wgmma_kernel_activations(cuda, act):
     ref = dk.decode_stage_reference(xin, p, act)
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= 2.0**-7 * ref.float().abs() + 1e-4).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_z", [False, True])
+@pytest.mark.parametrize(
+    "B,H,W,Cin,C,s,head",
+    # + Cin 12 (48-byte pixels), and many work items a block (the ring goes round)
+    WGMMA_CASES + [(2, 6, 10, 12, 16, 2, "tanh"), (4, 90, 160, 32, 96, 2, None)],
+)
+def test_cuda_tf32x3_kernel_matches_plain(cuda, B, H, W, Cin, C, s, head, with_z):
+    """The f32 wgmma kernel (three TF32 products) against the TF32-off plain
+    version over the ragged cases, as decode stage and as training forward:
+    1e-4, the FMA kernel's bound, at sums of O(1)."""
+    from repnerv_tpu_torch.kernels import train_tail as tt
+
+    x, w, b, hw, hb = _inputs(B=B, H=H, W=W, Cin=Cin, C=C, s=s, head=head is not None)
+    # weights of a trained stage's size (std K^-1/2, sums of O(1)): the tensor
+    # core adds into its f32 accumulator by truncation, so the kernel's
+    # distance from the plain version grows with the sums' magnitude
+    w *= (9 * Cin) ** -0.5 / 0.1
+    dev = lambda a: None if a is None else torch.from_numpy(a).to(cuda)  # noqa: E731
+    p = dk.pack_weights(dev(w), dev(b), s, torch.float32, head_w=dev(hw), head_b=dev(hb))
+    assert p.route == "wgmma_tf32x3"
+    xin = dev(x).contiguous()
+    counts = tt.FWD_ROUTE_LAUNCHES if with_z else dk.ROUTE_LAUNCHES
+    before = dict(counts)
+    if with_z:
+        out, z = tt.stage_forward(xin, p, "swish", head or "tanh")
+        ref, ref_z = tt.stage_forward_reference(xin, p, "swish", head or "tanh")
+    else:
+        out = dk.decode_stage(xin, p, "swish", head or "tanh")
+        ref = dk.decode_stage_reference(xin, p, "swish", head or "tanh")
+    torch.cuda.synchronize()
+    assert counts["wgmma_tf32x3"] == before["wgmma_tf32x3"] + 1 and counts["fma"] == before["fma"]
+    assert out.dtype == ref.dtype == torch.float32 and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    assert (out - ref).abs().max().item() <= 1e-4
+    if with_z:
+        assert z.dtype == torch.float32 and z.shape == ref_z.shape
+        assert (z - ref_z).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_tf32x3_kernel_activations(cuda, act):
+    x, w, b, _, _ = _inputs(B=1, H=6, W=10, Cin=16, C=8, s=2, seed=3)
+    x *= 3.0
+    p = dk.pack_weights(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda), 2,
+                        torch.float32)
+    assert p.route == "wgmma_tf32x3"
+    xin = torch.from_numpy(x).to(cuda)
+    out = dk.decode_stage(xin, p, act)
+    ref = dk.decode_stage_reference(xin, p, act)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_tf32x3_route_refuses_what_it_cannot_take(cuda):
+    """The f32 wgmma route handed Cin 6 (24-byte pixels: no TMA stride)
+    returns an error instead of launching the FMA kernel."""
+    import ctypes
+
+    from repnerv_tpu_torch.kernels.build import load_library
+
+    x, w, b, _, _ = _inputs(Cin=6, C=8, s=2)
+    p = dk.pack_weights(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda), 2,
+                        torch.float32)
+    assert p.route == "fma"
+    wt = torch.stack(dk.split_tf32(p.w.t().contiguous()))
+    xin = torch.from_numpy(x).to(cuda)
+    out = torch.zeros(2, 16, 32, 8, device=cuda)
+    ptr = ctypes.c_void_p
+    err = load_library().repnerv_fused_conv_ps_act(
+        dk.ROUTES.index("wgmma_tf32x3"), ptr(xin.data_ptr()), ptr(p.w.data_ptr()),
+        ptr(wt.data_ptr()), ptr(p.b.data_ptr()), ptr(None), ptr(None), ptr(out.data_ptr()),
+        2, 8, 16, 6, 8, 2, dk.ACT_CODES["swish"], 0, 0,
+        ptr(torch.cuda.current_stream().cuda_stream),
+    )
+    torch.cuda.synchronize()
+    assert err != 0
+    assert not bool(out.any())  # nothing ran
 
 
 @pytest.mark.gpu

@@ -309,7 +309,7 @@ def test_wgmma_shapes_take_the_wgmma_route(B, H, W, Cin, C, s, head):
     t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
     p = dk.pack_weights(t(w), t(b), s, torch.bfloat16, head_w=t(hw), head_b=t(hb))
     assert p.route == "wgmma" and torch.equal(p.wt, p.w.t())
-    assert dk.pack_weights(t(w), t(b), s, torch.float32).route == "fma"
+    assert dk.pack_weights(t(w), t(b), s, torch.float32).route == "wgmma_tf32x3"
     before = dict(tt.FWD_ROUTE_LAUNCHES)
     out, z = tt.stage_forward(t(x).bfloat16(), p, "swish", head or "tanh")
     assert tt.FWD_ROUTE_LAUNCHES == before  # a CPU tensor launches nothing
