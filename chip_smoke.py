@@ -27,12 +27,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                (32 frames, batch 8) in f32 and bf16; launch count, frames vs
                the plain path, fps of both paths
   5. train-kernels — K3 (training stage forward) and K4 (its epilogue
-               backward) at the four fused block shapes of a -b 1 flagship
-               step, f32 and bf16; K5 (SSIM blur) at the loss's and the
-               MS-SSIM levels' shapes, forward and VJP; each vs its plain
-               version, with times
+               backward, with the bias and head gradients it sums itself:
+               values, and equal bits from two launches) at the four fused
+               block shapes of a -b 1 flagship step, f32 and bf16; K5 (SSIM
+               blur) at the loss's and the MS-SSIM levels' shapes: the five
+               moments in one launch (bitwise), their fused VJP (stated
+               bound), and the single-map blur; each vs its plain version,
+               with times
   6. train   — train_main on the flagship (16 synthetic 720p frames, -b 1,
-               Fusion6, 2 epochs) in bf16 and f32: launches per step, finite
+               Fusion6, 2 epochs) in bf16 (with --eval_fps: the FPS lines of
+               its rank0.txt) and f32: launches per step, finite
                losses, PSNR rising, the .pth files; one step of the kernel
                path vs --no_pallas_train (loss, gradients); ms per step of
                both paths; where a step's time goes (torch.profiler)
@@ -129,11 +133,11 @@ TRAIN_ARGV = (
     "--strides 5 2 2 2 2 --lower_width 96 --branch_type ERB --act swish --single_res "
     f"--loss Fusion6 -b 1 --lr 5e-4 -e {TRAIN_EPOCHS} --device cuda"
 ).split()
-# launches per training step: K3 and K4 on blocks 1-4; K5 5 blurs in the
-# Fusion6 SSIM forward, 3 in its VJP (the target's two blurs need none) and
-# 5 levels x 5 blurs in the MS-SSIM metric.  Per frame of the eval: 25 K5.
-PER_STEP = {"K3": 4, "K4": 4, "K5": 5 + 3 + 25}
-PER_EVAL_FRAME = {"K3": 0, "K4": 0, "K5": 25}
+# launches per training step: K3 and K4 on blocks 1-4; K5 once for the five
+# moments of the Fusion6 SSIM term, once for their VJP (the target needs
+# none) and once per level of the MS-SSIM metric.  Per frame of the eval: 5 K5.
+PER_STEP = {"K3": 4, "K4": 4, "K5": 1 + 1 + 5}
+PER_EVAL_FRAME = {"K3": 0, "K4": 0, "K5": 5}
 # one step, kernel path vs --no_pallas_train, from the same weights and batch:
 # f32 sums the same products in other orders (TF32 off): loss within 1e-5
 # relative, each parameter's gradient within 1e-4 of its largest |entry|
@@ -248,6 +252,26 @@ def cuda_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, fragment: str, reps: int = 5) -> float:
+    """The card's own time for the kernels of one ``fn()`` whose name holds
+    ``fragment``, from a torch.profiler trace of ``reps`` calls.  ``cuda_ms``
+    of a call that is shorter than the host takes to launch it (K4 and K5 at
+    the small stages: tens of microseconds) reads the host instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+             if fragment in e.key.lower())
+    if not us:
+        raise RuntimeError(f"the profiler saw no kernel named *{fragment}*")
+    return us / 1e3 / reps
 
 
 def phase_device() -> dict:
@@ -468,11 +492,16 @@ TRAIN_SHAPES = [
     ("block3", 180, 320, 96, 96, 2, False),
     ("block4+head", 360, 640, 96, 96, 2, True),
 ]
-# the K5 calls of one step: the loss's SSIM at 720p (forward x5, VJP x3) and
-# the MS-SSIM metric's five levels (forward x5 each); N = 3 channels, b = 1
-BLUR_CALLS = [("loss", (3, 720, 1280), 5, 3)] + [
-    (f"msssim-l{i}", (3, 720 >> i, 1280 >> i), 5, 0) for i in range(5)
+# the K5 calls of one step, (name, shape, moments launches, VJP launches): the
+# loss's SSIM at 720p (the five moments, their VJP) and the MS-SSIM metric's
+# five levels (the moments); N = 3 channels, b = 1
+BLUR_CALLS = [("loss", (3, 720, 1280), 1, 1)] + [
+    (f"msssim-l{i}", (3, 720 >> i, 1280 >> i), 1, 0) for i in range(5)
 ]
+# the fused VJP adds three terms, B(g_mu) + 2 x B(g_xx) + y B(g_xy), in an
+# order autograd does not fix: within this share of the plain VJP's largest
+# |entry| (a few f32 roundings of O(1) terms)
+K5_VJP_RTOL = 1e-6
 
 
 def _bf16_ulp(out, ref):
@@ -528,75 +557,122 @@ def phase_train_kernels() -> dict:
             ct = torch.randn(out.shape, generator=g).to(dev).to(out.dtype).contiguous()
             args = (z, ct, out if head else None, p.head_w, s, "swish", "tanh")
             got = tt.epilogue_backward(*args)
+            again = tt.epilogue_backward(*args)
             ref = tt.epilogue_backward_reference(*args)
             torch.cuda.synchronize()
             err = (got[0].float() - ref[0].float()).abs().max().item()
             ok = _bf16_ulp(got[0], ref[0]) if dtype == torch.bfloat16 else err <= 1e-5
-            part_rel = 0.0  # per-block partial sums vs one sum: f32 order over <= 2^20 terms
+            # d_b (PixelShuffle order), d_hw, d_hb: summed in the kernel, in a
+            # fixed order over <= 2^20 f32 terms, against one torch sum
+            part_rel = 0.0
             for a, r in zip(got[1:], ref[1:]):
                 if r is not None:
                     part_rel = max(part_rel, (a - r).abs().max().item() / max(r.abs().max().item(), 1.0))
             ok = ok and part_rel <= 1e-4
+            # ... and with the same bits from launch to launch
+            same_bits = all(torch.equal(a, b2) for a, b2 in zip(got, again) if a is not None)
+            ok = ok and same_bits
             tol = ("d_conv |d| <= 2^-7|ref| + 1e-4" if dtype == torch.bfloat16 else "d_conv 1e-5") + \
-                "; partials 1e-4 x max|ref|"
+                "; sums 1e-4 x max|ref|, equal bits from two launches"
             ms = cuda_ms(lambda: tt.epilogue_backward(*args))
+            device_ms = kernel_device_ms(lambda: tt.epilogue_backward(*args), "epilogue_bwd")
             plain_ms = cuda_ms(lambda: tt.epilogue_backward_reference(*args))
             # bound: z, the cotangent and (head) the output and head weight
-            # read once, d_conv and the summed gradients written once; per z
+            # read once, d_conv and the finished gradients written once; per z
             # element ~10 FLOPs of activation derivative and, with a head, 4
             # per head output (d_a and dW products), on the FMA pipes
             k4_bound = roofline(z.numel() * (10.0 + 4 * p.c_final),
                                 nbytes(z, ct, out if head else None, p.head_w, *got), "f32")
             log(f"[train-kernels] K4 {dname:8s} {name:12s} z {list(z.shape)} -> d_conv "
-                f"{list(got[0].shape)}: d_conv max|d|={err:.3e}, partials max|d|/max|ref|="
-                f"{part_rel:.3e} (tol {tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"{list(got[0].shape)}: d_conv max|d|={err:.3e}, sums max|d|/max|ref|="
+                f"{part_rel:.3e}, two launches {'equal' if same_bits else 'DIFFER'} (tol {tol}) "
+                f"kernel {ms:.3f} ms a call, {device_ms:.3f} ms on the card, "
+                f"plain {plain_ms:.3f} ms, "
                 f"bound {k4_bound['bound_ms']:.3f} ms ({k4_bound['bound_by']}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K4 disagrees with its plain version at {name} {dname}")
             rows["K4"].append({"shape": name, "dtype": dname, "max_abs_err": err,
                                "partials_rel_err": part_rel, "tol": tol, "ms": ms,
-                               "plain_ms": plain_ms, **k4_bound})
-            del x, out, z, ref_out, ref_z, ct, got, ref, args
+                               "device_ms": device_ms, "plain_ms": plain_ms, **k4_bound})
+            del x, out, z, ref_out, ref_z, ct, got, again, ref, args
             torch.cuda.empty_cache()
     win = sb.window_tuple(11, 1.5)
+
+    def blur_ops(n, h, w_in, w_out, h_out, maps):
+        # 2 x 11 FLOPs per value of the column pass and of the row pass
+        return 22.0 * maps * n * (h_out * w_in + h_out * w_out)
+
     for name, shape, n_fwd, n_vjp in BLUR_CALLS:
-        x = torch.rand(shape, generator=g).to(dev)
-        ct = torch.randn(shape[0], shape[1] - 10, shape[2] - 10, generator=g).to(dev)
-        ctp = F.pad(ct, (10,) * 4).contiguous()
-        out, ref = sb.blur_valid(x, win), sb.blur_valid_reference(x, win)
-        dx, ref_dx = sb.blur_valid(ctp, win), sb.blur_valid_reference(ctp, win)
+        n, h, w = shape
+        x, y = torch.rand(shape, generator=g).to(dev), torch.rand(shape, generator=g).to(dev)
+        cts = [torch.randn(n, h - 10, w - 10, generator=g).to(dev) for _ in range(3)]
+        out, ref = sb.moments_forward(x, y, win), sb.ssim_moments_reference(x, y, win)
+        dx, ref_dx = sb.moments_vjp(*cts, x, y, win), sb.moments_vjp_reference(*cts, x, y, win)
         torch.cuda.synchronize()
-        # the kernel runs the plain version's rounded multiplies and adds in
-        # its order: the results are equal to the bit
-        err = max((out - ref).abs().max().item(), (dx - ref_dx).abs().max().item())
-        ok = torch.equal(out, ref) and torch.equal(dx, ref_dx)
-        ms = cuda_ms(lambda: sb.blur_valid(x, win))
-        plain_ms = cuda_ms(lambda: sb.blur_valid_reference(x, win))
-        vjp_ms = cuda_ms(lambda: sb.blur_valid(ctp, win)) if n_vjp else 0.0
-        vjp_plain_ms = cuda_ms(lambda: sb.blur_valid_reference(ctp, win)) if n_vjp else 0.0
-        # bound of one blur: the image read and the blurred image written
-        # once; 2 x 11 FLOPs per element of the row pass and of the column pass
-        fwd_bound = roofline(22.0 * (x.shape[0] * x.shape[1] * out.shape[2] + out.numel()),
-                             nbytes(x, out), "f32")
-        vjp_bound = roofline(22.0 * (ctp.shape[0] * ctp.shape[1] * dx.shape[2] + dx.numel()),
-                             nbytes(ctp, dx), "f32")
+        # forward: the kernel runs the plain version's rounded multiplies and
+        # adds in its order, the products x*x, y*y, x*y included: equal bits
+        err = max((a - r).abs().max().item() for a, r in zip(out, ref))
+        vjp_err = (dx - ref_dx).abs().max().item()
+        vjp_tol = K5_VJP_RTOL * ref_dx.abs().max().item()
+        ok = all(torch.equal(a, r) for a, r in zip(out, ref)) and vjp_err <= vjp_tol
+        ms = cuda_ms(lambda: sb.moments_forward(x, y, win))
+        device_ms = kernel_device_ms(lambda: sb.moments_forward(x, y, win), "blur_tiles")
+        plain_ms = cuda_ms(lambda: sb.ssim_moments_reference(x, y, win))
+        vjp_ms = cuda_ms(lambda: sb.moments_vjp(*cts, x, y, win)) if n_vjp else 0.0
+        vjp_device_ms = (kernel_device_ms(lambda: sb.moments_vjp(*cts, x, y, win), "blur_tiles")
+                         if n_vjp else 0.0)
+        vjp_plain_ms = (cuda_ms(lambda: sb.moments_vjp_reference(*cts, x, y, win))
+                        if n_vjp else 0.0)
+        # bounds on the fused calls' own bytes: x and y read once and five maps
+        # written; the three cotangents, x and y read and d_x written
+        fwd_bound = roofline(blur_ops(n, h, w, w - 10, h - 10, 5), nbytes(x, y, *out), "f32")
+        vjp_bound = roofline(blur_ops(n, h + 10, w - 10, w, h, 3), nbytes(*cts, x, y, dx), "f32")
         k5_bound = sum_bounds([fwd_bound] * n_fwd + [vjp_bound] * n_vjp)
-        log(f"[train-kernels] K5 float32  {name:12s} {list(shape)} -> {list(out.shape)}: "
-            f"max|d|={err:.3e} (tol 0, bitwise) kernel {ms:.3f} ms (VJP {vjp_ms:.3f}), plain "
-            f"{plain_ms:.3f} ms (VJP {vjp_plain_ms:.3f}), bound of one blur "
-            f"{fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}) {'ok' if ok else 'FAIL'}")
+        log(f"[train-kernels] K5 float32  {name:12s} x, y {list(shape)} -> 5 x {list(out[0].shape)}"
+            f": max|d|={err:.3e} (tol 0, bitwise), VJP max|d|={vjp_err:.3e} (tol {vjp_tol:.3e} = "
+            f"{K5_VJP_RTOL:g} max|ref|) kernel {ms:.3f} ms a call (VJP {vjp_ms:.3f}), {device_ms:.3f} "
+            f"(VJP {vjp_device_ms:.3f}) on the card, plain "
+            f"{plain_ms:.3f} ms (VJP {vjp_plain_ms:.3f}), bound {fwd_bound['bound_ms']:.4f} ms "
+            f"({fwd_bound['bound_by']}; VJP {vjp_bound['bound_ms']:.4f}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K5 disagrees with its plain version at {name}")
         rows["K5"].append({
             "shape": name, "dtype": "float32", "max_abs_err": err, "tol": 0.0,
+            "vjp_max_abs_err": vjp_err, "vjp_tol": vjp_tol,
             "ms": ms, "plain_ms": plain_ms, "vjp_ms": vjp_ms, "vjp_plain_ms": vjp_plain_ms,
             # this shape's share of one training step's blurs
             "step_ms": n_fwd * ms + n_vjp * vjp_ms,
+            "device_ms": device_ms, "vjp_device_ms": vjp_device_ms,
+            "step_device_ms": n_fwd * device_ms + n_vjp * vjp_device_ms,
             "step_plain_ms": n_fwd * plain_ms + n_vjp * vjp_plain_ms,
             "calls_per_step": n_fwd + n_vjp,
             **k5_bound,  # of this shape's calls of one step
         })
+        del out, ref, dx, ref_dx, cts
+    # the single-map blur (gauss_blur_valid and its VJP), no longer on the
+    # step's path: same inner loops, held to the bit at the loss's shape
+    ct = torch.randn(3, 710, 1270, generator=g).to(dev)
+    x = torch.rand(3, 720, 1280, generator=g).to(dev)
+    out, ref = sb.blur_valid(x, win), sb.blur_valid_reference(x, win)
+    dx, ref_dx = sb.blur_full(ct, win), sb.blur_full_reference(ct, win)
+    torch.cuda.synchronize()
+    ok = torch.equal(out, ref) and torch.equal(dx, ref_dx)
+    single = {"shape": "single-map", "dtype": "float32", "tol": 0.0, "calls_per_step": 0,
+              "max_abs_err": max((out - ref).abs().max().item(), (dx - ref_dx).abs().max().item()),
+              "ms": cuda_ms(lambda: sb.blur_valid(x, win)),
+              "plain_ms": cuda_ms(lambda: sb.blur_valid_reference(x, win)),
+              "vjp_ms": cuda_ms(lambda: sb.blur_full(ct, win)),
+              "vjp_plain_ms": cuda_ms(lambda: sb.blur_full_reference(ct, win)),
+              **roofline(blur_ops(3, 720, 1280, 1270, 710, 1), nbytes(x, out), "f32")}
+    log(f"[train-kernels] K5 float32  gauss_blur_valid [3, 720, 1280]: max|d|="
+        f"{single['max_abs_err']:.3e} (tol 0, bitwise, forward and VJP) kernel "
+        f"{single['ms']:.3f} ms (VJP {single['vjp_ms']:.3f}), plain {single['plain_ms']:.3f} ms "
+        f"(VJP {single['vjp_plain_ms']:.3f}), bound {single['bound_ms']:.4f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the single-map blur disagrees with its plain version")
+    rows["K5_single"] = single
     return rows
 
 
@@ -658,11 +734,14 @@ PROFILE_GROUPS = [
     ("K2 int8 stage", ("int8", "s8policy")),
     ("K1/K3 stage forward", ("stage_wgmma", "tensor_core::kernel", "cuda_core::kernel")),
     ("K4 epilogue backward", ("epilogue_bwd",)),
-    ("K5 SSIM blur", ("blur_valid",)),
+    ("K5 SSIM blur", ("blur_tiles",)),
     ("cuDNN conv (stage 0, dX/dW)", ("conv", "cudnn", "xmma", "implicit_gemm", "wgrad",
                                      "dgrad", "sm90_", "cutlass")),
     ("Adam", ("adam", "multi_tensor")),
 ]
+
+
+OTHER_TOP = 14  # kernels of the "other" group listed by name
 
 
 def profile_groups(run, n_iters: int) -> dict:
@@ -678,6 +757,7 @@ def profile_groups(run, n_iters: int) -> dict:
     groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
     groups["other (elementwise, SSIM maps, stem, fusion)"] = 0.0
     total, n_kernels = 0.0, 0
+    other = []  # (device us, launches, name) of the kernels no group claims
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
@@ -695,8 +775,12 @@ def profile_groups(run, n_iters: int) -> dict:
                 break
         else:
             groups["other (elementwise, SSIM maps, stem, fusion)"] += us
+            other.append((us, e.count, e.key))
+    other.sort(reverse=True)
     return {"groups_ms": {k: v / 1e3 / n_iters for k, v in groups.items() if v},
-            "device_ms": total / 1e3 / n_iters, "kernels_per_step": n_kernels / n_iters}
+            "device_ms": total / 1e3 / n_iters, "kernels_per_step": n_kernels / n_iters,
+            "other_top": [{"ms": us / 1e3 / n_iters, "launches": n / n_iters, "kernel": key[:90]}
+                          for us, n, key in other[:OTHER_TOP]]}
 
 
 def step_breakdown(dtype: str, use_kernel: bool, store: FrameStore, n_steps: int = 3) -> dict:
@@ -759,7 +843,10 @@ def phase_train(tmp: str) -> dict:
             try:
                 reset_counts()  # the main path's run starts here
                 t0 = time.perf_counter()
-                res = train_main.main(TRAIN_ARGV + ["--compute_dtype", dtype, "--outf", dtype])
+                # the bf16 run also measures the decode fps at every eval (--eval_fps)
+                extra = ["--eval_fps"] if dtype == "bfloat16" else []
+                res = train_main.main(TRAIN_ARGV + extra
+                                      + ["--compute_dtype", dtype, "--outf", dtype])
                 wall = time.perf_counter() - t0
                 counts = launch_counts()  # ... and ends here
                 routes = dict(tt.FWD_ROUTE_LAUNCHES)
@@ -797,7 +884,14 @@ def phase_train(tmp: str) -> dict:
             for name in ("model_latest.pth", "model_latest_deploy.pth", "resume_latest.pt"):
                 if not os.path.exists(os.path.join(outf, name)):
                     raise AssertionError(f"train_main wrote no {name}")
+            with open(os.path.join(outf, "rank0.txt")) as f:
+                fps_lines = [float(line.split()[1]) for line in f if line.startswith("FPS: ")]
+            want_fps = TRAIN_EPOCHS if dtype == "bfloat16" else 0  # every epoch evaluates
+            log(f"[train] {dtype}: rank0.txt FPS lines {fps_lines} (expect {want_fps})")
+            if len(fps_lines) != want_fps or not all(np.isfinite(v) and v > 0 for v in fps_lines):
+                raise AssertionError(f"{dtype}: --eval_fps wrote {fps_lines} to rank0.txt")
             results[dtype] = {"launches": counts, "train_launches": train_counts,
+                              "eval_fps": fps_lines,
                               "route_launches": routes,
                               "eval_launches": dict(eval_counts), "history": hist,
                               "wall_s": wall}
@@ -855,6 +949,9 @@ def phase_train(tmp: str) -> dict:
             log(f"[train] {dtype}: {path} step, device ms from torch.profiler: {parts}; device "
                 f"total {bd['device_ms']:.3f} of {wall:.3f} ms per step (idle share "
                 f"{bd['idle_share']:.3f}); {bd['kernels_per_step']:.0f} kernels per step")
+            log(f"[train] {dtype}: {path} step, the largest of 'other' (ms, launches a step): "
+                + "; ".join(f"{o['ms']:.3f} x{o['launches']:.0f} {o['kernel']}"
+                            for o in bd["other_top"]))
             results[dtype]["breakdown" if use_kernel else "breakdown_plain"] = bd
             torch.cuda.empty_cache()
     return results
@@ -1210,20 +1307,26 @@ def main() -> None:
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
                 **yardsticks(rows),
+                **({"device_ms": sum(r["device_ms"] for r in rows)} if key == "K4" else {}),
                 "shapes": rows,
             })
     rows = train_rows["K5"]
     kernels.append({
-        "name": "gauss_blur_valid[float32]", "route": "cuda",
+        "name": "ssim_moments[float32]", "route": "cuda",
         "source": "repnerv_tpu_torch/csrc/ssim_blur.cu",
         "replaces": "repnerv_tpu/pallas_kernels/ssim_blur.py:43",
         "launches": sum(train[d]["launches"]["K5"] for d in ("bfloat16", "float32")),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # the 33 blurs of one training step (loss forward + VJP, MS-SSIM metric)
+        # the 7 launches of one training step (the loss's moments and their
+        # VJP, the MS-SSIM metric's five levels)
         "ms": sum(r["step_ms"] for r in rows),
         "plain_ms": sum(r["step_plain_ms"] for r in rows),
         **yardsticks(rows),
+        "device_ms": sum(r["step_device_ms"] for r in rows),
+        "vjp_max_abs_err": max(r["vjp_max_abs_err"] for r in rows),
         "shapes": rows,
+        # gauss_blur_valid, the one-map entry of the same source (not on the step's path)
+        "single_map": train_rows["K5_single"],
     })
     main_rows = [r for r in int8_rows if r["shape"] in INT8_MAIN_PATH_SHAPES]
     kernels.append({
@@ -1250,6 +1353,8 @@ def main() -> None:
         log(f"[kernels] {k['name']}: {k['ms']:.3f} ms, bound {k['bound_ms']:.3f} ms by "
             f"{k['bound_by']} ({share:.1%} of it reached), plain {k['plain_ms']:.3f} ms, "
             f"library {lib}, launches {k['launches']}"
+            + (f"; the kernels alone {k['device_ms']:.3f} ms on the card (torch.profiler: "
+               f"{k['bound_ms'] / k['device_ms']:.1%} of the bound)" if "device_ms" in k else "")
             + "".join(f"; rows on the wgmma route {k['wgmma_rows_ms']:.3f} ms, the "
                       f"{old.upper()} kernel on the same rows {k[f'wgmma_rows_{old}_ms']:.3f} ms"
                       for old in ("wmma", "fma") if f"wgmma_rows_{old}_ms" in k)

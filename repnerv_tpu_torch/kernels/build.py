@@ -115,16 +115,25 @@ def load_library() -> ctypes.CDLL:
             # route, x_q, w_q, wt_q, scale, bias, inv_out, head_w, head_b, out,
             # B, H, W, Cin, C, s, act, c_final, sigmoid_squash, stream
             lib.repnerv_fused_conv_ps_act_int8.argtypes = [i, *[p] * 9, *[i] * 9, p]
-            # dtype, z, ct, ct_head, out, hw, d_conv, db_part, dhw_part,
-            # dhb_part, B, H, W, C, s, act, c_final, sigmoid_squash, tile, stream
-            lib.repnerv_train_stage_bwd.argtypes = [i, *[p] * 9, *[i] * 9, p]
-            # x, out, N, H, W, window (host f32[size]), size, stream
-            lib.repnerv_gauss_blur_valid.argtypes = [p, p, i, i, i, p, i, p]
+            # dtype, z, ct, ct_head, out, hw, d_conv, d_b, d_hw, d_hb, work,
+            # ticket, B, H, W, C, s, act, c_final, sigmoid_squash, stream
+            lib.repnerv_train_stage_bwd.argtypes = [i, *[p] * 11, *[i] * 8, p]
+            # dtype, B, H, W, C, s, c_final -> f32 values of workspace
+            lib.repnerv_train_stage_bwd_workspace.argtypes = [i] * 7
+            lib.repnerv_train_stage_bwd_workspace.restype = ctypes.c_longlong
+            # x, y, out, N, H, W, window (host f32[size]), size, stream
+            lib.repnerv_ssim_moments.argtypes = [p, p, p, i, i, i, p, i, p]
+            # g_mu, g_sq, g_ab, a, b, d, N, H, W, window, size, stream
+            lib.repnerv_ssim_moments_vjp.argtypes = [*[p] * 6, i, i, i, p, i, p]
+            # x, out, N, H, W, window, size, full, stream
+            lib.repnerv_gauss_blur_valid.argtypes = [p, p, i, i, i, p, i, i, p]
             for fn in (
                 lib.repnerv_fused_conv_ps_act,
                 lib.repnerv_train_stage_fwd,
                 lib.repnerv_fused_conv_ps_act_int8,
                 lib.repnerv_train_stage_bwd,
+                lib.repnerv_ssim_moments,
+                lib.repnerv_ssim_moments_vjp,
                 lib.repnerv_gauss_blur_valid,
             ):
                 fn.restype = i

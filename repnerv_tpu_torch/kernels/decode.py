@@ -107,6 +107,21 @@ def shuffle_weight_permutation(cout: int, stride: int, device=None) -> torch.Ten
     return (idx % c) * s * s + idx // c
 
 
+# (Cout, stride, device) -> (perm, its inverse), made once
+_PERMUTATIONS: Dict[Tuple[int, int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def shuffle_permutations(cout: int, stride: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``shuffle_weight_permutation`` and its inverse (``inv[perm] ==
+    arange``: ``v[perm].index_select(0, inv) == v``), built once per (Cout,
+    stride, device) and kept, so that a train step launches no kernel for them."""
+    key = (cout, stride, torch.device(device))
+    if key not in _PERMUTATIONS:
+        perm = shuffle_weight_permutation(cout, stride, key[2])
+        _PERMUTATIONS[key] = (perm, torch.argsort(perm))
+    return _PERMUTATIONS[key]
+
+
 @dataclass(frozen=True)
 class PackedStage:
     """One decode stage's weights in the kernel's layout."""
@@ -151,7 +166,7 @@ def pack_weights(
     kh, kw, cin, cout = w.shape
     if (kh, kw) != (3, 3) or cout % (stride * stride):
         raise ValueError(f"need a 3x3 kernel with Cout divisible by s^2, got {tuple(w.shape)}")
-    perm = shuffle_weight_permutation(cout, stride, w.device)
+    perm, _ = shuffle_permutations(cout, stride, w.device)
     w2 = w[..., perm].reshape(9 * cin, cout).to(compute_dtype).contiguous()
     if b is None:
         b = torch.zeros(cout, device=w.device)

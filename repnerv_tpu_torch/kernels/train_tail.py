@@ -12,20 +12,23 @@ runs its plain PyTorch version on a CPU tensor:
   (the JAX kernel's z5 [B, H, s, W, s*C] is the same bytes).
 * ``epilogue_backward`` (K4, ``csrc/train_tail.cu``): from ``z``, the
   cotangent and (with a head) the squashed output to ``d_conv`` [B, H, W,
-  s*s*C] in shuffle-major column order, plus the bias and head gradients.
+  s*s*C] in shuffle-major column order, plus the finished bias gradient (in
+  the model's channel order) and head gradients: the kernel ends its sums
+  itself, in a fixed order.
 
 ``fused_stage_train`` is a ``torch.autograd.Function`` with the JAX custom
 VJP's contract: the conv dX/dW after K4 stay on the library conv
-(``torch.nn.grad``, cuDNN on the card), in the compute dtype, with TF32 off
-in f32; the weight and bias gradients scatter back from shuffle-major order
-through ``shuffle_weight_permutation``.
+(one ``aten::convolution_backward``, cuDNN on the card), in the compute
+dtype, with TF32 off in f32, on the forward's packed weight; the weight
+gradient comes back from shuffle-major order by one gather with the inverse
+of ``shuffle_weight_permutation``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,7 +44,7 @@ from .decode import (
     exact_f32,
     launch_stage_kernel,
     pack_weights,
-    shuffle_weight_permutation,
+    shuffle_permutations,
     stage_reference,
 )
 
@@ -51,7 +54,6 @@ FWD_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)  # K3's launches by kernels.decode
 BWD_LAUNCHES = 0
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_BWD_MAX_TILE = 64  # low-res pixels per block of the backward kernel
 
 
 def activation_grad(z: torch.Tensor, act: str) -> torch.Tensor:
@@ -145,7 +147,8 @@ def epilogue_backward_reference(
     cotangent of the stage output (f32 [.., c_final] with a head, else the
     compute dtype [.., C]); out the squashed f32 output (head); head_w f32
     [C, c_final].  Returns (d_conv [B, H, W, s*s*C] in the compute dtype and
-    shuffle-major column order, d_b [s*s*C] f32 in that order, d_hw [C,
+    shuffle-major column order, d_b [s*s*C] f32 in PixelShuffle channel
+    order (the order of the model's bias), d_hw [C,
     c_final] f32 | None, d_hb [c_final] f32 | None), with the JAX kernel's
     cast points: d_h and the head weight rounded to the compute dtype for
     d_a, act(z) from the rounded z, the bias gradient from the f32 d_z."""
@@ -172,16 +175,17 @@ def epilogue_backward_reference(
     d_z = d_a * activation_grad(zf, act)
     # [B, H, s, W, s, C] -> [B, H, W, (i*s + j)*C + c]
     d_conv = d_z.reshape(bsz, h, s, w, s, c).permute(0, 1, 3, 2, 4, 5).reshape(bsz, h, w, s * s * c)
-    return d_conv.to(cd), d_conv.sum(dim=(0, 1, 2)), d_hw, d_hb
+    # the bias gradient: column (i*s + j)*C + c -> PixelShuffle channel c*s*s + i*s + j
+    d_b = d_conv.sum(dim=(0, 1, 2)).reshape(s * s, c).t().reshape(-1)
+    return d_conv.to(cd), d_b, d_hw, d_hb
 
 
-def _bwd_tile(m: int, s: int, c: int, c_final: int) -> int:
-    """Low-res pixels per backward block: enough blocks to fill the card
-    (~8 per SM of 132), at most 64 pixels, and shared memory under 48 KB."""
-    tile = max(1, min(_BWD_MAX_TILE, m // (132 * 8)))
-    while tile > 1 and (tile * s * s * c_final + c * c_final + s * s * c * c_final) * 4 > 48 * 1024:
-        tile //= 2
-    return tile
+# device -> the 64 int32 tickets K4's blocks draw from: 0 between launches
+# (the blocks that add the sums set them back), shared by the launches of one
+# stream
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+# (device, (dtype code, B, H, W, C, s, c_final)) -> the f32 values of workspace K4 needs
+_WORKSPACES: Dict[tuple, int] = {}
 
 
 def epilogue_backward(
@@ -193,8 +197,8 @@ def epilogue_backward(
     act: str,
     squash: str,
 ) -> Grads:
-    """Launch K4 on a CUDA tensor and sum its per-block partials; run the
-    plain version on a CPU one."""
+    """Launch K4 on a CUDA tensor (the kernel ends its own sums: no torch
+    reduction follows); run the plain version on a CPU one."""
     global BWD_LAUNCHES
     if z.device.type == "cpu":
         return epilogue_backward_reference(z, ct, out, head_w, stride, act, squash)
@@ -226,15 +230,23 @@ def epilogue_backward(
         raise ValueError("epilogue_backward: z must hold 1 to 2**31 - 1 elements")
     h, w = hs // s, ws // s
     cout = s * s * c
-    m = bsz * h * w
-    tile = _bwd_tile(m, s, c, c_final)
-    n_blocks = -(-m // tile)
     dev = z.device
-    d_conv = torch.empty(bsz, h, w, cout, device=dev, dtype=z.dtype)
-    db_part = torch.empty(n_blocks, cout, device=dev, dtype=torch.float32)
-    dhw_part = torch.empty(n_blocks, c, c_final, device=dev) if c_final else None
-    dhb_part = torch.empty(n_blocks, c_final, device=dev) if c_final else None
     lib = load_library()
+    code = _DTYPE_CODES[z.dtype]
+    key = (code, bsz, h, w, c, s, c_final)
+    if (dev, key) not in _WORKSPACES:  # asked of the library once per problem and card
+        with torch.cuda.device(dev):
+            _WORKSPACES[dev, key] = lib.repnerv_train_stage_bwd_workspace(*key)
+    n_work = _WORKSPACES[dev, key]
+    if n_work < 0:
+        raise ValueError(f"epilogue_backward: the kernel does not take z {tuple(z.shape)}")
+    d_conv = torch.empty(bsz, h, w, cout, device=dev, dtype=z.dtype)
+    d_b = torch.empty(cout, device=dev, dtype=torch.float32)
+    d_hw = torch.empty(c, c_final, device=dev, dtype=torch.float32) if c_final else None
+    d_hb = torch.empty(c_final, device=dev, dtype=torch.float32) if c_final else None
+    work = torch.empty(n_work, device=dev, dtype=torch.float32)
+    if dev not in _TICKETS:
+        _TICKETS[dev] = torch.zeros(64, device=dev, dtype=torch.int32)
     ptr = ctypes.c_void_p
 
     def addr(t):
@@ -242,37 +254,39 @@ def epilogue_backward(
 
     with torch.cuda.device(dev):
         err = lib.repnerv_train_stage_bwd(
-            _DTYPE_CODES[z.dtype],
+            code,
             addr(z),
             addr(None if c_final else ct),
             addr(ct if c_final else None),
             addr(out if c_final else None),
             addr(head_w),
             addr(d_conv),
-            addr(db_part),
-            addr(dhw_part),
-            addr(dhb_part),
+            addr(d_b),
+            addr(d_hw),
+            addr(d_hb),
+            addr(work),
+            addr(_TICKETS[dev]),
             bsz, h, w, c, s,
             ACT_CODES[act],
             c_final,
             int(squash == "sigmoid"),
-            tile,
             ptr(torch.cuda.current_stream(dev).cuda_stream),
         )
     if err != 0:
         raise RuntimeError(f"train stage backward kernel launch failed: cudaError {err}")
     BWD_LAUNCHES += 1
-    return (
-        d_conv,
-        db_part.sum(dim=0),
-        dhw_part.sum(dim=0) if c_final else None,
-        dhb_part.sum(dim=0) if c_final else None,
-    )
+    return d_conv, d_b, d_hw, d_hb
 
 
 # ---------------------------------------------------------------------------
 # The differentiable stage
 # ---------------------------------------------------------------------------
+
+
+def packed_weight_oihw(p: PackedStage) -> torch.Tensor:
+    """The packed conv weight [9*Cin, Cout] as an OIHW view [Cout, Cin, 3, 3]
+    (shuffle-major O, compute dtype) for the library's dX / dW.  No kernel runs."""
+    return p.w.reshape(3, 3, p.cin, p.w.shape[1]).permute(3, 2, 0, 1)
 
 
 class _FusedStageTrain(torch.autograd.Function):
@@ -284,35 +298,41 @@ class _FusedStageTrain(torch.autograd.Function):
             head_w=head_w.detach() if head_w is not None else None,
             head_b=head_b.detach() if head_b is not None else None,
         )
-        out, z = stage_forward(x.detach().to(cd).contiguous(), p, act, squash)
-        ctx.save_for_backward(x, w, z, out if head_w is not None else None)
-        ctx.cfg = (stride, act, squash, cd, p.head_w, head_w is not None)
+        xc = x.detach().to(cd).contiguous()  # x itself when it has the type and layout
+        out, z = stage_forward(xc, p, act, squash)
+        with_head = head_w is not None
+        # the backward's conv weight is the forward's packed one: no second gather and cast
+        ctx.save_for_backward(xc, z, out if with_head else None, packed_weight_oihw(p))
+        ctx.cfg = (stride, act, squash, cd, p.head_w, with_head, x.dtype, w.dtype)
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        x, w, z, out = ctx.saved_tensors
-        stride, act, squash, cd, hw2, with_head = ctx.cfg
+        xc, z, out, w2 = ctx.saved_tensors
+        stride, act, squash, cd, hw2, with_head, x_dtype, w_dtype = ctx.cfg
         ct = ct.to(torch.float32 if with_head else cd).contiguous()
-        d_conv, d_b2, d_hw, d_hb = epilogue_backward(
+        d_conv, d_b, d_hw, d_hb = epilogue_backward(
             z, ct, out, hw2 if with_head else None, stride, act, squash
         )
-        cout = w.shape[-1]
-        perm = shuffle_weight_permutation(cout, stride, w.device)
-        w2 = w.detach()[..., perm].permute(3, 2, 0, 1).to(cd)  # OIHW, shuffle-major O
-        x_nchw = x.detach().to(cd).permute(0, 3, 1, 2)
+        x_nchw = xc.permute(0, 3, 1, 2)
         d_nchw = d_conv.permute(0, 3, 1, 2)
+        # dX and dW in one library call on the tensors as they lie (NHWC memory
+        # seen as channels_last NCHW: cuDNN copies nothing).  torch.nn.grad's
+        # conv2d_input / conv2d_weight stand in a made-up operand for the one
+        # they do not read, which the backend first copies out at full size:
+        # on an H100 2.416 ms for the pair against 0.685 ms for this call at
+        # the 720p stage in bf16.
         with _f32_ctx(cd):
-            d_x = torch.nn.grad.conv2d_input(x_nchw.shape, w2, d_nchw, padding=1)
-            d_w2 = torch.nn.grad.conv2d_weight(x_nchw, w2.shape, d_nchw, padding=1)
-        # w2 = w[..., perm]  =>  d_w[..., perm] = d_w2
-        d_w = torch.empty_like(d_w2)
-        d_w[perm] = d_w2
-        d_b = torch.empty_like(d_b2)
-        d_b[perm] = d_b2
+            d_x, d_w2, _ = torch.ops.aten.convolution_backward(
+                d_nchw, x_nchw, w2, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [True, True, False],
+            )
+        # w2 = w[..., perm]  =>  d_w = d_w2[inverse of perm]: one gather
+        _, inv = shuffle_permutations(w2.shape[0], stride, w2.device)
+        d_w = d_w2.index_select(0, inv)
         return (
-            d_x.permute(0, 2, 3, 1).to(x.dtype),
-            d_w.permute(2, 3, 1, 0).to(w.dtype),
+            d_x.permute(0, 2, 3, 1).to(x_dtype),
+            d_w.permute(2, 3, 1, 0).to(w_dtype),
             d_b,
             d_hw.reshape(1, 1, *d_hw.shape) if with_head else None,
             d_hb if with_head else None,

@@ -7,9 +7,10 @@ an 11-tap sigma 1.5 separable gaussian, VALID; C1 = (0.01 L)^2, C2 =
 downsampling with zero padding on odd sides (``count_include_pad``).
 
 Images flatten once to [B*C, H, W] (the layout of the JAX package's Pallas
-path, ``_ssim_maps_pallas``) and every blur goes through
-``kernels/ssim_blur.gauss_blur_valid``: the hand-written kernel on a CUDA
-tensor, at every size, and its exact-f32 plain version on a CPU tensor.
+path, ``_ssim_maps_pallas``) and the five blurs of an SSIM term, of x, y,
+x*x, y*y and x*y, are one call of ``kernels/ssim_blur.ssim_moments``: one
+launch of the hand-written kernel on a CUDA tensor, at every size (and one
+for its VJP), and its exact-f32 plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -39,14 +40,11 @@ def _ssim_maps(
     x2 = x.permute(0, 3, 1, 2).reshape(b * c, h, w)
     y2 = y.permute(0, 3, 1, 2).reshape(b * c, h, w)
 
-    def blur(a):
-        return ssim_blur.gauss_blur_valid(a, win)
-
-    mu1, mu2 = blur(x2), blur(y2)
+    mu1, mu2, e11, e22, e12 = ssim_blur.ssim_moments(x2, y2, win)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    sigma1_sq = blur(x2 * x2) - mu1_sq
-    sigma2_sq = blur(y2 * y2) - mu2_sq
-    sigma12 = blur(x2 * y2) - mu1_mu2
+    sigma1_sq = e11 - mu1_sq
+    sigma2_sq = e22 - mu2_sq
+    sigma12 = e12 - mu1_mu2
 
     cs_map = (2.0 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)
     ssim_map = ((2.0 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)) * cs_map

@@ -211,15 +211,20 @@ def evaluate(
     cfg: TrainConfig,
     max_steps: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Validation sweep in frame order -> (psnr [n_stage], msssim [n_stage])."""
+    """Validation sweep in frame order -> (psnr [n_stage], msssim [n_stage]).
+    The frame rows and the ``t`` column go to the device once, before the
+    sweep (a host tensor copied per batch would make the stream wait)."""
     dev = store.frames.device
+    b = cfg.data.batch_size
+    idx = store.sample_indices()
+    if max_steps is not None:
+        idx = idx[: max_steps * b]
+    rows_all = torch.from_numpy(idx).to(dev)
+    t_all = torch.from_numpy(np.asarray(store.t, np.float32)).to(dev)
     psnrs, msssims = [], []
-    for i, (rows, t) in enumerate(
-        store.epoch_batches(cfg.data.batch_size, shuffle=False, seed=0, drop_last=False)
-    ):
-        if max_steps is not None and i >= max_steps:
-            break
-        _, aux = eval_step(model, store.gather(rows), torch.from_numpy(t).to(dev))
+    for i in range(0, len(idx), b):  # the last batch may be short
+        rows = rows_all[i : i + b]
+        _, aux = eval_step(model, store.gather(rows), t_all[rows])
         psnrs.append(aux["psnr"])
         if "msssim" in aux:
             msssims.append(aux["msssim"])
@@ -259,6 +264,18 @@ def decode_batch_cap(h: int, w: int, base: int = 8) -> int:
     return min(max(base, 1), max(base * 921600 // (h * w), 1))
 
 
+def decode_time_batches(t_all, bsz: int) -> np.ndarray:
+    """The frame times of a throughput measurement as [n_batches, B] f32: whole
+    batches of ``bsz`` frames, the rest dropped; a video shorter than one
+    batch is one batch of all its frames."""
+    t_all = np.asarray(t_all, np.float32)
+    if len(t_all) == 0:
+        raise ValueError("decode_time_batches: no frame to decode")
+    bsz = max(min(bsz, len(t_all)), 1)
+    n_batches = len(t_all) // bsz
+    return t_all[: n_batches * bsz].reshape(n_batches, bsz)
+
+
 def measure_decode_fps(
     model: nn.Module, cfg: TrainConfig, t_all, bsz: int, reps: int = DECODE_REPS
 ) -> float:
@@ -269,9 +286,9 @@ def measure_decode_fps(
     device = next(model.parameters()).device
     if device.type != "cuda":
         raise RuntimeError(f"decode fps is measured on a CUDA device, not {device}")
-    t_all = np.asarray(t_all, np.float32)
-    n_batches = max(len(t_all) // bsz, 1)
-    t_mat = torch.from_numpy(t_all[: n_batches * bsz].reshape(n_batches, bsz)).to(device)
+    t_np = decode_time_batches(t_all, bsz)
+    n_batches, bsz = t_np.shape
+    t_mat = torch.from_numpy(t_np).to(device)
     decode_video(model, cfg, t_mat, keep_frames=False)  # warm-up: build, allocator
     times = []
     for _ in range(reps):

@@ -65,6 +65,71 @@ def test_blur_and_vjp_match_jax_kernel(jax_interpret, shape):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), atol=1e-5)
 
 
+def _maps(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.random(shape, dtype=np.float32)),
+            torch.from_numpy(rng.random(shape, dtype=np.float32)))
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 50), (1, 11, 30), (2, 21, 37)])
+def test_moments_reference_is_five_blurs_to_the_bit(shape):
+    x, y = _maps(shape, 1)
+    got = sb.ssim_moments_reference(x, y, WIN)
+    want = [sb.blur_valid_reference(a, WIN) for a in (x, y, x * x, y * y, x * y)]
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(sb.moments_forward(x, y, WIN), want):  # a CPU tensor: the plain version
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("needs", [(True, False), (False, True), (True, True)])
+def test_moments_function_gradient_matches_autograd(needs):
+    """The fused Function's backward (one fused VJP per input that needs a
+    gradient: d_x = B(g_mu) + 2 x B(g_xx) + y B(g_xy)) against autograd
+    through the plain version.  The three terms add in another order than
+    autograd's: within 1e-6 of the largest |entry|."""
+    x, y = _maps((2, 23, 31), 2)
+    cts = [torch.from_numpy(np.random.default_rng(3 + i).standard_normal((2, 13, 21))
+                            .astype(np.float32)) for i in range(5)]
+
+    def grads(fn):
+        a = x.clone().requires_grad_(needs[0])
+        b = y.clone().requires_grad_(needs[1])
+        outs = fn(a, b, WIN)
+        sum((o * c).sum() for o, c in zip(outs, cts)).backward()
+        return outs, a.grad, b.grad
+
+    outs, gx, gy = grads(sb.ssim_moments)
+    ref_outs, ref_gx, ref_gy = grads(sb.ssim_moments_reference)
+    for o, r in zip(outs, ref_outs):
+        assert torch.equal(o, r)
+    for g, r, need in ((gx, ref_gx, needs[0]), (gy, ref_gy, needs[1])):
+        if not need:
+            assert g is None
+            continue
+        assert (g - r).abs().max().item() <= 1e-6 * r.abs().max().item()
+
+
+def test_blur_full_is_the_blur_of_the_padded_cotangent():
+    ct = _maps((2, 9, 14), 4)[0]
+    want = sb.blur_valid_reference(torch.nn.functional.pad(ct, (10,) * 4), WIN)
+    assert torch.equal(sb.blur_full(ct, WIN), want)
+    assert tuple(want.shape) == (2, 19, 24)
+
+
+def test_kernel_wrappers_refuse_other_windows():
+    """The kernels take symmetric windows of 3, 5, .. 15 taps (their VJP is
+    the same blur only for a symmetric window); the check runs before any
+    launch, so it can be held here on a meta tensor."""
+    x = torch.zeros(1, 40, 40, device="meta")
+    for win in (WIN[:10], (0.5, 0.5), WIN + WIN[:6], (0.2, 0.3, 0.5)):
+        with pytest.raises(ValueError):
+            sb.blur_valid(x, win)
+    with pytest.raises(ValueError):  # not a CUDA tensor
+        sb.blur_valid(x, WIN)
+
+
 def _images(b=1, h=176, w=192, seed=3):
     rng = np.random.default_rng(seed)
     sig = lambda a: 1.0 / (1.0 + np.exp(-a))  # noqa: E731
@@ -172,6 +237,88 @@ def test_cuda_blur_matches_plain_bitwise(cuda, shape):
     ref_dx = sb.blur_valid_reference(torch.nn.functional.pad(ct, (10,) * 4), WIN)
     assert torch.equal(out.detach(), ref)
     assert torch.equal(x.grad, ref_dx)
+
+
+MOMENT_SHAPES = [
+    (3, 40, 50),       # one tile
+    (1, 167, 30),      # many row tiles, narrow
+    (2, 11, 11),       # one output
+    (3, 720, 1280),    # the loss's
+    (3, 45, 80),       # the last MS-SSIM level's
+    (5, 97, 263),      # ragged in both directions, three column tiles
+    (1, 43, 129),      # a column tile of one output column
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MOMENT_SHAPES)
+def test_cuda_moments_match_plain_bitwise(cuda, shape):
+    x, y = (t.to(cuda) for t in _maps(shape, 7))
+    before = sb.LAUNCHES
+    got = sb.moments_forward(x, y, WIN)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES == before + 1
+    want = sb.ssim_moments_reference(x, y, WIN)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MOMENT_SHAPES)
+def test_cuda_moments_vjp_matches_plain(cuda, shape):
+    """One launch per input that needs a gradient; the fused sum of three
+    terms within 1e-6 of the largest |entry| of the plain VJP, and equal to
+    it where only one term is not zero."""
+    x, y = (t.to(cuda) for t in _maps(shape, 8))
+    n, h, w = shape
+    g = [torch.randn(n, h - 10, w - 10, device=cuda) for _ in range(3)]
+    before = sb.LAUNCHES
+    got = sb.moments_vjp(*g, x, y, WIN)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES == before + 1
+    want = sb.moments_vjp_reference(*g, x, y, WIN)
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    zero = torch.zeros_like(g[0])
+    assert torch.equal(sb.moments_vjp(g[0], zero, zero, x, y, WIN),
+                       sb.blur_full_reference(g[0], WIN))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("needs,launches", [((True, False), 2), ((True, True), 3)])
+def test_cuda_moments_function_launches(cuda, needs, launches):
+    x, y = (t.to(cuda) for t in _maps((3, 64, 96), 9))
+    x.requires_grad_(needs[0])
+    y.requires_grad_(needs[1])
+    before = sb.LAUNCHES
+    outs = sb.ssim_moments(x, y, WIN)
+    sum(o.sum() for o in outs).backward()
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES == before + launches
+    assert (x.grad is not None) == needs[0] and (y.grad is not None) == needs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,sigma", [(3, 0.8), (7, 1.0), (15, 2.5)])
+def test_cuda_blur_other_window_sizes(cuda, size, sigma):
+    win = sb.window_tuple(size, sigma)
+    x, y = (t.to(cuda) for t in _maps((2, 70, 150), 10))
+    for g, w in zip(sb.moments_forward(x, y, win), sb.ssim_moments_reference(x, y, win)):
+        assert torch.equal(g, w)
+    assert torch.equal(sb.blur_full(x, win), sb.blur_full_reference(x, win))
+
+
+@pytest.mark.gpu
+def test_cuda_ssim_and_grad_match_cpu(cuda):
+    x, y = _images(b=1, h=48, w=64)
+    xc = torch.from_numpy(x).requires_grad_(True)
+    (1.0 - ts.ssim(xc, torch.from_numpy(y))).backward()
+    xg = torch.from_numpy(x).to(cuda).requires_grad_(True)
+    before = sb.LAUNCHES
+    out = ts.ssim(xg, torch.from_numpy(y).to(cuda))
+    (1.0 - out).backward()
+    assert sb.LAUNCHES == before + 2  # one for the five maps, one for their VJP
+    ref_g = xc.grad
+    assert (xg.grad.cpu() - ref_g).abs().max().item() <= 1e-6 * max(ref_g.abs().max().item(), 1)
 
 
 @pytest.mark.gpu

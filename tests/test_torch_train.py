@@ -328,3 +328,64 @@ def test_frame_dir_store_matches_jax(tmp_path):
     np.testing.assert_array_equal(store.frames.numpy(), np.asarray(ref.frames))
     np.testing.assert_array_equal(store.t, ref.t)
     assert store.hw == (6, 10)
+
+
+def test_evaluate_builds_no_host_tensor_per_batch(monkeypatch):
+    """The eval sweep sends the frame rows and the t column to the device
+    once: however many batches it runs, it turns two numpy arrays into
+    tensors, before the first batch (on the card every such copy inside the
+    loop waits for the stream).  The metrics equal a sweep that copies per
+    batch, a short last batch included."""
+    from repnerv_tpu_torch.data.frames import synthetic_video
+
+    cfg = port_train_cfg(JaxTrainConfig(model=tiny_model(branch_type="ERB", embed="1.25_4",
+                                                         fc_hw_dim="3_4_6", strides=(2, 2))))
+    cfg.data.batch_size = 2
+    video, t_all = synthetic_video(5, 12, 16, seed=2)
+    store = FrameStore(frames=torch.from_numpy(video), t=t_all)
+    model = _tiny_state(cfg).model
+    eval_step = tloop.make_eval_step(cfg, with_msssim=False)
+    ref = [eval_step(model, store.gather(rows), torch.from_numpy(t))[1]["psnr"]
+           for rows, t in store.epoch_batches(2, shuffle=False, seed=0, drop_last=False)]
+    ref = torch.cat(ref, 0).mean(dim=0).numpy()
+
+    calls, batches = [], []
+    real = torch.from_numpy
+
+    def counting_from_numpy(a):
+        calls.append(len(batches))  # how many batches had run when it was made
+        return real(a)
+
+    def counting_eval_step(*args):
+        for a in args[1:]:
+            assert isinstance(a, torch.Tensor)
+        batches.append(args[2].shape[0])
+        return eval_step(*args)
+
+    monkeypatch.setattr(torch, "from_numpy", counting_from_numpy)
+    psnr, msssim = tloop.evaluate(model, counting_eval_step, store, cfg)
+    assert batches == [2, 2, 1]
+    assert calls == [0, 0]
+    np.testing.assert_array_equal(psnr, ref)
+    assert msssim.shape == psnr.shape and not msssim.any()
+    batches.clear()
+    tloop.evaluate(model, counting_eval_step, store, cfg, max_steps=1)
+    assert batches == [2]
+
+
+@pytest.mark.parametrize(
+    "n_frames,bsz,shape", [(32, 8, (4, 8)), (10, 4, (2, 4)), (3, 8, (1, 3)), (1, 8, (1, 1)),
+                           (8, 8, (1, 8))]
+)
+def test_decode_time_batches_takes_a_video_shorter_than_a_batch(n_frames, bsz, shape):
+    """The shape logic of the fps measurement: whole batches, the rest
+    dropped; fewer frames than a batch make one batch of all of them."""
+    t = np.arange(n_frames) / n_frames
+    got = tloop.decode_time_batches(t, bsz)
+    assert got.shape == shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.reshape(-1), t.astype(np.float32)[: shape[0] * shape[1]])
+
+
+def test_decode_time_batches_refuses_an_empty_video():
+    with pytest.raises(ValueError):
+        tloop.decode_time_batches([], 8)

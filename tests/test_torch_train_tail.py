@@ -165,6 +165,46 @@ def test_fused_stage_matches_library_autograd(s, squash):
         _close(a, t.grad.numpy(), 1e-5)
 
 
+@pytest.mark.parametrize("cout,s", [(12, 2), (384, 2), (650, 5), (27, 3), (8, 1)])
+def test_inverse_permutation_form_equals_the_scatter_form(cout, s):
+    """d_w2 = d_w[perm] comes back as one gather with the inverse
+    permutation: equal to the scatter ``d_w[perm] = d_w2``, exactly; and the
+    plain K4's d_b is in PixelShuffle channel order, the scatter of the
+    shuffle-major column sums."""
+    perm, inv = dk.shuffle_permutations(cout, s, "cpu")
+    assert torch.equal(perm, dk.shuffle_weight_permutation(cout, s))
+    assert torch.equal(inv[perm], torch.arange(cout))
+    assert dk.shuffle_permutations(cout, s, torch.device("cpu"))[0] is perm  # made once
+    d_w2 = torch.randn(cout, 5, 3, 3, generator=torch.Generator().manual_seed(cout))
+    scattered = torch.empty_like(d_w2)
+    scattered[perm] = d_w2
+    assert torch.equal(d_w2.index_select(0, inv), scattered)
+    c = cout // (s * s)
+    z = torch.randn(1, 2 * s, 3 * s, c, generator=torch.Generator().manual_seed(1))
+    ct = torch.randn(1, 2 * s, 3 * s, c, generator=torch.Generator().manual_seed(2))
+    d_conv, d_b, _, _ = tt.epilogue_backward_reference(z, ct, None, None, s, "relu", "tanh")
+    by_column = torch.empty(cout)
+    by_column[perm] = d_conv.sum(dim=(0, 1, 2))
+    assert torch.equal(d_b, by_column)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "wgmma_tf32x3"),
+                                         (torch.bfloat16, "wmma"), (torch.float32, "fma")])
+def test_packed_weight_view_is_the_backward_conv_weight(dtype, route):
+    """The backward's conv weight is a view of the forward's packed weight,
+    equal to the gather + permute + cast it replaces."""
+    cin = 8 if route.startswith("wgmma") else 5
+    x, w, b, _, _, _ = _inputs(Cin=cin, C=8)
+    wt = torch.from_numpy(w)
+    p = dk.pack_weights(wt, torch.from_numpy(b), 2, dtype)
+    assert p.route == route
+    perm = dk.shuffle_weight_permutation(w.shape[-1], 2)
+    want = wt[..., perm].permute(3, 2, 0, 1).to(dtype)
+    got = tt.packed_weight_oihw(p)
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert got.untyped_storage().data_ptr() == p.w.untyped_storage().data_ptr()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x, w, b, _, _, _ = _inputs()
     p = dk.pack_weights(torch.from_numpy(w), torch.from_numpy(b), 2, torch.float32)
@@ -261,6 +301,76 @@ def test_cuda_backward_matches_plain(cuda, dtype, H, W, Cin, C, s, head):
             assert a is None
             continue
         assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0) * 10
+
+
+def _bwd_case(cuda, dtype, B, H, W, C, s, head, act="swish", seed=5):
+    rng = np.random.default_rng(seed)
+    hs, ws = H * s, W * s
+    z = torch.from_numpy(rng.standard_normal((B, hs, ws, C)).astype(np.float32) * 3).to(cuda)
+    z = z.to(dtype).contiguous()
+    c_out = 3 if head else C
+    ct = torch.from_numpy(rng.standard_normal((B, hs, ws, c_out)).astype(np.float32)).to(cuda)
+    ct = ct if head else ct.to(dtype)
+    out = torch.from_numpy(rng.random((B, hs, ws, 3), dtype=np.float32)).to(cuda) if head else None
+    hw = torch.from_numpy(rng.standard_normal((C, 3)).astype(np.float32) * 0.3).to(cuda) if head else None
+    return z, ct, out, hw, s, act, head or "tanh"
+
+
+# B, H, W, C, s, head: one tile and many, rows shorter than a tile, both
+# squashes, channel counts on the 16-byte route and off it, a run wider than a block
+BWD_SHAPES = [
+    (1, 1, 1, 8, 2, None),
+    (1, 3, 7, 96, 2, "tanh"),
+    (2, 45, 80, 96, 2, None),
+    (1, 90, 163, 96, 2, "sigmoid"),
+    (1, 37, 41, 24, 3, "tanh"),
+    (2, 9, 16, 26, 5, None),
+    (1, 6, 50, 130, 2, "sigmoid"),
+    (1, 5, 9, 1024, 2, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,s,head", BWD_SHAPES)
+def test_cuda_backward_sums_end_in_the_kernel(cuda, dtype, B, H, W, C, s, head):
+    """d_conv under the smoke's bounds; d_b (in PixelShuffle order), d_hw and
+    d_hb within 1e-4 of the largest |ref| (f32 sums in another order); two
+    launches on the same inputs give the same bits: the kernel adds its
+    partial sums in a fixed order, whatever order the blocks ran in."""
+    args = _bwd_case(cuda, dtype, B, H, W, C, s, head)
+    before = tt.BWD_LAUNCHES
+    got = tt.epilogue_backward(*args)
+    again = tt.epilogue_backward(*args)
+    ref = tt.epilogue_backward_reference(*args)
+    torch.cuda.synchronize()
+    assert tt.BWD_LAUNCHES == before + 2
+    if dtype == torch.bfloat16:
+        assert _bf16_ulp_ok(got[0], ref[0])
+    else:
+        assert (got[0] - ref[0]).abs().max().item() <= 1e-5
+    for a, b2, r in zip(got, again, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert torch.equal(a, b2)
+    for a, r in zip(got[1:], ref[1:]):
+        if r is not None:
+            assert (a - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("squash", [None, "tanh", "sigmoid"])
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_backward_every_activation_and_squash(cuda, act, squash):
+    args = _bwd_case(cuda, torch.float32, 1, 11, 23, 16, 2, squash, act=act, seed=8)
+    got = tt.epilogue_backward(*args)
+    ref = tt.epilogue_backward_reference(*args)
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-5
+    for a, r in zip(got[1:], ref[1:]):
+        if r is not None:
+            assert (a - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
 
 
 @pytest.mark.gpu
