@@ -35,11 +35,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                bound), and the single-map blur; each vs its plain version,
                with times
   6. train   — train_main on the flagship (16 synthetic 720p frames, -b 1,
-               Fusion6, 2 epochs) in bf16 (with --eval_fps: the FPS lines of
-               its rank0.txt) and f32: launches per step, finite
+               Fusion6, 2 epochs; the fused epoch: one CUDA graph replay per
+               step) in bf16 (with --eval_fps: the FPS lines of its
+               rank0.txt), f32 and mixed: launches per step, finite
                losses, PSNR rising, the .pth files; one step of the kernel
                path vs --no_pallas_train (loss, gradients); ms per step of
-               both paths; where a step's time goes (torch.profiler)
+               both paths; where a step's time goes (torch.profiler); the
+               graph step vs the eager step from the same weights (per-step
+               losses, launches per replayed step), and ms per step, device
+               total and idle share of both in turns (bf16, f32, mixed)
   7. int8-kernel — K2 (int8 decode stage) vs plain version at the flagship's
                int8 blocks 3 and 4 + head (batch 8, the wgmma s8 kernel; beside
                it the WMMA kernel's and the bf16 kernel's time on the same
@@ -86,10 +90,14 @@ from repnerv_tpu_torch.models.embedding import positional_encoding
 from repnerv_tpu_torch.models.generator import Generator, calibrate_int8, param_count
 from repnerv_tpu_torch.train.loop import (
     DECODE_REPS,
+    epoch_rows,
     init_train_state,
     make_decode_fn,
+    make_epoch_fn,
     make_train_step,
     measure_decode_fps,
+    run_epoch,
+    run_fused_epoch,
 )
 
 SEED = 0
@@ -137,7 +145,15 @@ TRAIN_ARGV = (
 # moments of the Fusion6 SSIM term, once for their VJP (the target needs
 # none) and once per level of the MS-SSIM metric.  Per frame of the eval: 5 K5.
 PER_STEP = {"K3": 4, "K4": 4, "K5": 1 + 1 + 5}
+# "mixed" runs every conv on the library (the JAX gate keeps it off K3 / K4)
+PER_STEP_MIXED = {"K3": 0, "K4": 0, "K5": 1 + 1 + 5}
 PER_EVAL_FRAME = {"K3": 0, "K4": 0, "K5": 5}
+# graph step vs eager step from the same weights over the 16 steps of an
+# epoch: the same kernels in the same order, so the losses agree to the bit
+# but where cuDNN's dX / dW algorithms sum in an order that is not fixed
+# (f32: the stage-0 conv and the fused stages' dX / dW; mixed: every conv of
+# the step, 1e6 f32 products a dW sum at 720p; bf16 rounds each dW to bf16)
+GRAPH_TOL = {"bfloat16": 1e-3, "float32": 1e-5, "mixed": 1e-4}
 # one step, kernel path vs --no_pallas_train, from the same weights and batch:
 # f32 sums the same products in other orders (TF32 off): loss within 1e-5
 # relative, each parameter's gradient within 1e-4 of its largest |entry|
@@ -837,7 +853,8 @@ def phase_train(tmp: str) -> dict:
     cwd = os.getcwd()
     train_main.evaluate = counted_evaluate
     try:
-        for dtype in ("bfloat16", "float32"):
+        for dtype in ("bfloat16", "float32", "mixed"):
+            per_step = PER_STEP_MIXED if dtype == "mixed" else PER_STEP
             eval_counts.clear()
             os.chdir(tmp)  # train_main writes under result/<outf>
             try:
@@ -854,22 +871,23 @@ def phase_train(tmp: str) -> dict:
             finally:
                 os.chdir(cwd)
             n_eval = TRAIN_EPOCHS * TRAIN_FRAMES  # every epoch is one of the last 10: all eval
-            train_counts = {k: counts[k] - eval_counts.get(k, 0) for k in PER_STEP}
+            train_counts = {k: counts[k] - eval_counts.get(k, 0) for k in per_step}
             log(f"[train] {dtype}: train_main {TRAIN_EPOCHS} epochs x {TRAIN_FRAMES} steps in "
                 f"{wall:.1f} s; launches {counts}; in the training steps {train_counts} "
-                f"(expect {({k: v * steps for k, v in PER_STEP.items()})}), in the eval "
-                f"{ {k: eval_counts.get(k, 0) for k in PER_STEP} }")
-            for k in PER_STEP:
-                if train_counts[k] != PER_STEP[k] * steps:
+                f"(expect {({k: v * steps for k, v in per_step.items()})}), in the eval "
+                f"{ {k: eval_counts.get(k, 0) for k in per_step} }")
+            for k in per_step:
+                if train_counts[k] != per_step[k] * steps:
                     raise AssertionError(f"{k}: {train_counts[k]} launches in {steps} steps, "
-                                         f"expected {PER_STEP[k]} per step")
+                                         f"expected {per_step[k]} per step")
                 if eval_counts.get(k, 0) != PER_EVAL_FRAME[k] * n_eval:
                     raise AssertionError(f"{k}: {eval_counts.get(k, 0)} launches in the eval of "
                                          f"{n_eval} frames, expected {PER_EVAL_FRAME[k]} each")
             # blocks 2-4 (Cin 96) on the type's wgmma kernel, block 1 (Cin 26) on WMMA / FMA
             want = dict.fromkeys(dk.ROUTES, 0)
-            want.update({"wmma": steps, "wgmma": 3 * steps} if dtype == "bfloat16"
-                        else {"fma": steps, "wgmma_tf32x3": 3 * steps})
+            if dtype != "mixed":
+                want.update({"wmma": steps, "wgmma": 3 * steps} if dtype == "bfloat16"
+                            else {"fma": steps, "wgmma_tf32x3": 3 * steps})
             log(f"[train] {dtype}: K3 launches by route {routes} (expect {want})")
             if routes != want:
                 raise AssertionError(f"{dtype}: K3 launches by route {routes}, expected {want}")
@@ -954,7 +972,105 @@ def phase_train(tmp: str) -> dict:
                             for o in bd["other_top"]))
             results[dtype]["breakdown" if use_kernel else "breakdown_plain"] = bd
             torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32", "mixed"):
+        results[dtype]["graph"] = graph_vs_eager(dtype, store)
     return results
+
+
+def eager_losses(cfg: TrainConfig, store: FrameStore, rows: np.ndarray) -> torch.Tensor:
+    """Per-step losses of the eager step over ``rows`` from the seed's weights."""
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    step = make_train_step(cfg, TRAIN_FRAMES, with_msssim=True)
+    t_all = torch.from_numpy(store.t).cuda()
+    losses = []
+    for r in torch.from_numpy(rows).cuda():
+        state, aux = step(state, store.gather(r), t_all[r])
+        losses.append(aux["loss"])
+    return torch.stack(losses).cpu()
+
+
+def epoch_step_ms(graph: bool, cfg: TrainConfig, store: FrameStore, profile: bool) -> dict:
+    """ms per step of an epoch (CUDA events around the whole epoch, its
+    metrics fetch included, over the steps) after a first epoch (on the graph
+    path: the eager step and the capture); with ``profile`` also the device
+    time per step of a third epoch from torch.profiler, and the idle share."""
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    if graph:
+        fn, run = make_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True), run_fused_epoch
+    else:
+        fn, run = make_train_step(cfg, TRAIN_FRAMES, with_msssim=True), run_epoch
+    state, _ = run(state, fn, store, cfg, 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, _ = run(state, fn, store, cfg, 1)
+    end.record()
+    end.synchronize()
+    out = {"ms": start.elapsed_time(end) / TRAIN_FRAMES}
+    if profile:
+        try:
+            bd = profile_groups(lambda i: run(state, fn, store, cfg, 2), 1)
+        except RuntimeError as e:  # the profiler could not trace the card here
+            log(f"[graph] profile not measured ({e})")
+            return out
+        out["device_ms"] = bd["device_ms"] / TRAIN_FRAMES
+        out["kernels_per_step"] = bd["kernels_per_step"] / TRAIN_FRAMES
+        out["idle_share"] = 1 - out["device_ms"] / out["ms"]
+    return out
+
+
+def graph_vs_eager(dtype: str, store: FrameStore) -> dict:
+    """The fused epoch (one CUDA graph replay per step) against the eager
+    step, on the kernel path from the seed's weights: per-step losses over
+    the 16 steps of epoch 1 (graph: the eager first step, the capture, 15
+    replays), the launches of an epoch of replays only, and ms per step of
+    both, in turns (eager, graph, graph, eager)."""
+    cfg = _train_cfg(dtype, True)
+    rows = epoch_rows(store, cfg, 0)
+    eager = eager_losses(cfg, store, rows)
+    again = eager_losses(cfg, store, rows)
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    epoch_fn = make_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True)
+    state, aux = epoch_fn(state, store, rows, None)
+    graph = aux["loss"].cpu()
+    rel = ((graph - eager).abs() / eager.abs()).max().item()
+    rel_eager = ((again - eager).abs() / eager.abs()).max().item()
+    ok = rel <= GRAPH_TOL[dtype] and bool(torch.isfinite(graph).all())
+    log(f"[graph] {dtype}: per-step losses over {TRAIN_FRAMES} steps, graph vs eager: largest "
+        f"relative difference {rel:.3e} (tol {GRAPH_TOL[dtype]:g}; eager vs eager {rel_eager:.3e}); "
+        f"equal bits {torch.equal(graph, eager)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{dtype}: the graph step and the eager step differ by {rel}")
+    reset_counts()  # an epoch of replays only starts here
+    state, _ = run_fused_epoch(state, epoch_fn, store, cfg, 1)
+    counts = launch_counts()  # ... and ends here
+    per_step = PER_STEP_MIXED if dtype == "mixed" else PER_STEP
+    want = {k: v * TRAIN_FRAMES for k, v in per_step.items()}
+    log(f"[graph] {dtype}: launches in an epoch of {TRAIN_FRAMES} replayed steps "
+        f"{ {k: counts[k] for k in want} } (expect {want})")
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{dtype}: {counts} launches in {TRAIN_FRAMES} replays")
+    del state, epoch_fn, aux
+    torch.cuda.empty_cache()
+    runs = {True: [], False: []}
+    for graph_path in (False, True, True, False):
+        first = not runs[graph_path]
+        runs[graph_path].append(epoch_step_ms(graph_path, cfg, store, profile=first))
+        torch.cuda.empty_cache()
+    res = {"max_rel_loss_diff": rel, "eager_max_rel_loss_diff": rel_eager,
+           "equal_bits": torch.equal(graph, eager), "replay_launches": counts}
+    for graph_path, name in ((False, "eager"), (True, "graph")):
+        r = runs[graph_path]
+        res[name] = {"ms": statistics.mean(x["ms"] for x in r), "runs_ms": [x["ms"] for x in r],
+                     **{k: v for k, v in r[0].items() if k != "ms"}}
+        prof = r[0]
+        extra = (f"; device {prof['device_ms']:.3f} ms a step (idle share {prof['idle_share']:.3f}), "
+                 f"{prof['kernels_per_step']:.1f} kernels a step (torch.profiler)"
+                 if "device_ms" in prof else "; device time not measured")
+        log(f"[graph] {dtype}: {name} step {res[name]['ms']:.3f} ms "
+            f"({', '.join(f'{x:.3f}' for x in res[name]['runs_ms'])}: CUDA events around an epoch "
+            f"of {TRAIN_FRAMES} steps, its metrics fetch included, over the steps){extra}")
+    return res
 
 
 # int8 stages of the flagship decode (int8_from_block -2: blocks 3 and 4 +
@@ -1315,7 +1431,7 @@ def main() -> None:
         "name": "ssim_moments[float32]", "route": "cuda",
         "source": "repnerv_tpu_torch/csrc/ssim_blur.cu",
         "replaces": "repnerv_tpu/pallas_kernels/ssim_blur.py:43",
-        "launches": sum(train[d]["launches"]["K5"] for d in ("bfloat16", "float32")),
+        "launches": sum(train[d]["launches"]["K5"] for d in ("bfloat16", "float32", "mixed")),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the 7 launches of one training step (the loss's moments and their
         # VJP, the MS-SSIM metric's five levels)

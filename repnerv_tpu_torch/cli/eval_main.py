@@ -19,7 +19,7 @@ appends the JAX package's result lines to the result file it names.
 
 Flags of later slices are refused with the ROADMAP row that ports them:
 ``--mesh_shape`` (A8), ``--host_budget_mb`` and ``--dataset photo|corpus``
-(A7), ``--finetune`` with ``--compute_dtype mixed`` (A1).
+(A7).
 """
 
 from __future__ import annotations
@@ -305,8 +305,6 @@ def _refusal(a) -> str:
         return "--host_budget_mb (out-of-core frames) is not ported yet (ROADMAP A7)"
     if a.dataset in ("photo", "corpus"):
         return f"--dataset {a.dataset} is not ported yet (ROADMAP A7)"
-    if a.finetune and a.compute_dtype == "mixed":
-        return "--finetune with --compute_dtype mixed is not ported yet (ROADMAP A1)"
     return ""
 
 

@@ -8,7 +8,10 @@
         --single_res --loss Fusion6 -b 1 --lr 5e-4 -e 2 \\
         --compute_dtype bfloat16 [--device cuda]
 
-Per epoch: train over the device-resident video, log PSNR / MS-SSIM to
+Per epoch: train over the device-resident video (with ``fused_epoch``, the
+default as in the JAX package: ``make_epoch_fn`` / ``run_fused_epoch``, one
+CUDA graph replay per step on the card; else ``run_epoch``'s eager steps),
+log PSNR / MS-SSIM to
 stdout and ``rank0.txt`` in the JAX package's line format, evaluate at
 ``eval_freq`` and over the last 10 epochs, keep the divergence guard, and at
 ``ckpt_freq`` write ``model_latest.pth`` (+ train / val best) and, for
@@ -16,8 +19,8 @@ reparam branches, the deploy-state ``model_latest_deploy.pth``, plus the
 resume file that a rerun with the same output directory picks up.
 
 Flags of later slices are refused with the ROADMAP row that ports them:
-``--mesh_shape`` (A8), ``--profile`` (the JAX profiler), ``--compute_dtype
-mixed`` (A1), ``--host_budget_mb`` (A7, out-of-core).
+``--mesh_shape`` (A8), ``--profile`` (the JAX profiler), ``--host_budget_mb``
+(A7, out-of-core).
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ from ..train import checkpoint as ckpt
 from ..train.loop import (
     evaluate,
     init_train_state,
+    make_epoch_fn,
     make_eval_step,
     make_train_step,
     measure_decode_fps,
     run_epoch,
+    run_fused_epoch,
 )
 from ..train.recovery import DivergenceGuard, snapshot
 from ..utils.costs import generator_macs
@@ -104,7 +109,14 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
         writer = None
 
     with_msssim = min(store.hw) > 160
-    train_step = make_train_step(cfg, steps_per_epoch, with_msssim=with_msssim)
+    if cfg.fused_epoch:
+        # one CUDA graph replay per step over the resident video (the JAX
+        # package's one lax.scan dispatch per epoch)
+        train_step = make_epoch_fn(cfg, steps_per_epoch, with_msssim=with_msssim)
+        run = run_fused_epoch
+    else:
+        train_step = make_train_step(cfg, steps_per_epoch, with_msssim=with_msssim)
+        run = run_epoch
     eval_step = make_eval_step(cfg, with_msssim=with_msssim)
     guard = DivergenceGuard(cfg, log=lambda msg: log_line(outf, 0, msg))
     pending_train_best = pending_val_best = None  # (on-device state, extra)
@@ -123,7 +135,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
 
     for epoch in range(start_epoch, cfg.epochs):
         ep_start = datetime.now()
-        state, m = run_epoch(state, train_step, store, cfg, epoch, max_steps=max_steps)
+        state, m = run(state, train_step, store, cfg, epoch, max_steps=max_steps)
         state, _ = guard.observe(epoch, float(m.psnr[-1]), state)
         history.append({"epoch": epoch + 1, "loss": m.loss, "lr": m.lr,
                         "psnr": m.psnr.tolist(), "msssim": m.msssim.tolist()})
@@ -229,8 +241,6 @@ def _refusal(a) -> str:
         return "--mesh_shape is not ported yet (ROADMAP A8: multi-GPU)"
     if a.profile:
         return "--profile is the JAX profiler's and is not ported"
-    if a.compute_dtype == "mixed":
-        return "--compute_dtype mixed is not ported for training yet (ROADMAP A1)"
     if a.host_budget_mb:
         return "--host_budget_mb (out-of-core frames) is not ported yet (ROADMAP A7)"
     if a.dataset in ("photo", "corpus"):

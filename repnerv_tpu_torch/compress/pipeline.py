@@ -2,11 +2,14 @@
 Huffman / rANS -> ``.rnvb`` (port of ``repnerv_tpu/compress/pipeline.py``).
 
 * PATH A (``finetune`` with prune_ratio < 1): the train-state model is
-  pruned by global L1 masks and finetuned with a FRESH Adam through the
-  port's train step and ``run_epoch`` (masks on gradients and weights), then
-  its branches fuse for deploy.  ``finetune_lr_mode`` "fresh" runs a new
-  warmup + decay over ``finetune_epochs``; "reference" continues the
-  original schedule from the checkpoint's epoch.
+  pruned by global L1 masks and finetuned with a FRESH Adam (masks on
+  gradients and weights) through the fused epoch (``make_epoch_fn`` /
+  ``run_fused_epoch``, the masks and the QAT transform inside its captured
+  step) as the JAX package does with ``fused_epoch`` and no step limit, else
+  through the eager step and ``run_epoch``; then its branches fuse for
+  deploy.  ``finetune_lr_mode`` "fresh" runs a new warmup + decay over
+  ``finetune_epochs``; "reference" continues the original schedule from the
+  checkpoint's epoch.
 * PATH B (no finetune): the loaded model (deploy state for reparam
   branches) is pruned and quantized as it is.
 * QAT (``finetune_qat`` with quantization on): reparam branches deploy
@@ -47,7 +50,15 @@ from ..config import TrainConfig
 from ..data.frames import FrameStore
 from ..models.generator import Generator, generator_to_deploy
 from ..train.checkpoint import load_state
-from ..train.loop import Masks, TrainState, make_optimizer, make_train_step, run_epoch
+from ..train.loop import (
+    Masks,
+    TrainState,
+    make_epoch_fn,
+    make_optimizer,
+    make_train_step,
+    run_epoch,
+    run_fused_epoch,
+)
 from .bitstream import all_in_bpp, write_bitstream
 from .huffman import bits_per_pixel, entropy_stats
 from .prune import apply_masks, global_l1_masks, verify_ratio
@@ -109,11 +120,17 @@ def finetune(
         report.extras["qat"] = True
     model.train()
     state = TrainState(model, make_optimizer(cfg, model), step0)
-    step = make_train_step(ft_cfg, steps_per_epoch, with_msssim=False,
-                           param_transform=param_transform)
-    for epoch in range(cfg.finetune_epochs):
-        state, _ = run_epoch(state, step, store, ft_cfg, epoch, masks=masks,
-                             max_steps=max_steps_per_epoch)
+    if cfg.fused_epoch and max_steps_per_epoch is None:
+        epoch_fn = make_epoch_fn(ft_cfg, steps_per_epoch, with_msssim=False,
+                                 param_transform=param_transform)
+        for epoch in range(cfg.finetune_epochs):
+            state, _ = run_fused_epoch(state, epoch_fn, store, ft_cfg, epoch, masks=masks)
+    else:
+        step = make_train_step(ft_cfg, steps_per_epoch, with_msssim=False,
+                               param_transform=param_transform)
+        for epoch in range(cfg.finetune_epochs):
+            state, _ = run_epoch(state, step, store, ft_cfg, epoch, masks=masks,
+                                 max_steps=max_steps_per_epoch)
     report.finetune_epochs = cfg.finetune_epochs
     return model.eval()
 

@@ -7,8 +7,11 @@ One dataclass shared by the train and eval CLIs, replacing the duplicated
 ~130-line argparse blocks of the reference (main_train.py:39-109
 and main_eval.py:31-104).  The CLI layer (``cli/args.py``) keeps
 an argv-compatible flag surface, including ``@argfile`` support.  Fields
-that only the JAX package acts on (``remat``, ``fused_epoch``, ``mesh_shape``,
-...) are kept so that the two configs stay field-for-field equal.
+that only the JAX package acts on (``mesh_shape``, ``mesh_axes``,
+``donate``, ``profile``, ``stream_chunk_mb``, ...) are kept so that the two
+configs stay field-for-field equal.  ``fused_epoch`` selects the port's
+fused epoch (``train/loop.py::make_epoch_fn``: one CUDA graph replay per
+step on the card) as it selects the JAX package's ``lax.scan`` epoch.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ class ModelConfig:
     # knobs with no reference counterpart
     compute_dtype: str = "float32"  # "float32" | "bfloat16" | "mixed"
     # ("mixed" = f32 activations/params with bf16 matmul inputs + f32
-    #  accumulation on every conv/matmul; not ported yet)
+    #  accumulation on every conv/matmul, models/layers.py::mxu_conv2d_f32)
     online_fuse: bool = True  # run one fused conv per block instead of branch-sum
     use_pallas_decode: bool = True  # fused conv+PS+act(+head) decode kernel
     # (the field keeps the JAX package's name; here: kernels/decode.py)
@@ -68,7 +71,7 @@ class ModelConfig:
     # calibrate_int8() tables on the generator
     int8_from_block: int = -2  # first int8 block, counted from the end (the
     # tail blocks carry ~95% of decode FLOPs; early stages stay high-precision)
-    remat: bool = False  # recompute each block in the backward (JAX package only)
+    remat: bool = False  # recompute each block in the backward
 
     @property
     def embed_length(self) -> int:

@@ -25,16 +25,15 @@ PixelShuffle channel order) and packs on every call.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import activation
+from ..models.layers import activation, exact_f32
 from .build import load_library
 
 # kernel launches since the count was last set to 0 (chip_smoke.py reads it)
@@ -185,18 +184,6 @@ def pack_weights(
     if p.route == "wgmma_tf32x3":
         return dataclasses.replace(p, wt=torch.stack(split_tf32(w2.t().contiguous())))
     return p
-
-
-@contextlib.contextmanager
-def exact_f32() -> Iterator[None]:
-    """Full-f32 cuDNN convs and matmuls (no TF32) for the duration."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def squash(y: torch.Tensor, out_squash: str) -> torch.Tensor:

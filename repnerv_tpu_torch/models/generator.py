@@ -29,7 +29,10 @@ not "mixed", input >= ``KERNEL_MIN_PIXELS`` pixels) fuses its branches
 (autograd differentiates through the fusion) and runs
 ``kernels/train_tail.fused_stage_train``, the last one with the head; other
 blocks run the library conv under autograd, through
-``torch.utils.checkpoint`` with ``remat``.
+``torch.utils.checkpoint`` with ``remat``.  compute_dtype "mixed" (f32
+activations and parameters) runs every block conv and stem matmul through
+``layers.mxu_conv2d_f32`` / ``mxu_matmul_f32``: bf16-rounded operands, f32
+sums, the cotangent rounded to bf16 in the backward.
 
 On a CUDA tensor each fused stage is a hand-written kernel; on a CPU
 tensor its plain version.
@@ -142,10 +145,6 @@ class Generator(nn.Module):
         cfg = self.cfg
         train = self.training
         mixed = cfg.compute_dtype == "mixed"
-        if train and mixed:
-            raise NotImplementedError(
-                'training with compute_dtype "mixed" is not ported yet (ROADMAP A1)'
-            )
         dtype = DTYPES[cfg.compute_dtype]
         squash = "sigmoid" if cfg.sigmoid else "tanh"
         h, w, c = cfg.fc_hwd
@@ -191,6 +190,7 @@ class Generator(nn.Module):
                     and cfg.norm == "none"
                     and cfg.online_fuse
                     and not cfg.remat
+                    and not mixed
                     and big
                 )
                 if use_decode:
@@ -214,7 +214,10 @@ class Generator(nn.Module):
                 else:
                     fuse_head = None
                     if train and cfg.remat:
-                        x = checkpoint(blk, x, mixed, cfg.online_fuse, use_reentrant=False)
+                        # the model draws no random numbers: no RNG state to save,
+                        # and none to read while a CUDA graph is being captured
+                        x = checkpoint(blk, x, mixed, cfg.online_fuse, use_reentrant=False,
+                                       preserve_rng_state=False)
                     else:
                         x = blk(x, mixed=mixed, online_fuse=cfg.online_fuse)
                 if fuse_head is not None:

@@ -15,8 +15,9 @@ Conventions:
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -134,10 +135,84 @@ def pixel_shuffle(x: torch.Tensor, stride: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def exact_f32() -> Iterator[None]:
+    """Full-f32 cuDNN convs and matmuls (no TF32) for the duration."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
-    """Round to bf16 and back: the input cast of compute_dtype "mixed"
+    """Round to bf16 and back: the operand cast of compute_dtype "mixed"
     (bf16 operands, f32 accumulation and result)."""
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+# compute_dtype "mixed": the custom VJPs of repnerv_tpu/models/layers.py
+# (mxu_conv2d_f32, mxu_matmul_f32).  The forward, dX and dW all multiply
+# operands rounded to bf16 -- x, w and the cotangent -- and sum in f32; the
+# residuals are the bf16 casts.  A product of two bf16 numbers is exact in
+# f32, so the library's f32 conv / matmul with TF32 off differs from the JAX
+# package's bf16 x bf16 -> f32 ops only in the order of the sums.
+
+
+class _MixedConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        pad = [w.shape[2] // 2, w.shape[3] // 2]
+        ctx.pad = pad
+        with exact_f32():
+            out = F.conv2d(xb.float().permute(0, 3, 1, 2), wb.float(), padding=pad)
+        return out.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        xb, wb = ctx.saved_tensors
+        with exact_f32():
+            d_x, d_w, _ = torch.ops.aten.convolution_backward(
+                bf16_round(ct).permute(0, 3, 1, 2), xb.float().permute(0, 3, 1, 2), wb.float(),
+                None, [1, 1], ctx.pad, [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
+            )
+        return (d_x.permute(0, 2, 3, 1) if d_x is not None else None), d_w
+
+
+def mxu_conv2d_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME conv of NHWC f32 ``x`` with an odd OIHW f32 kernel ``w``
+    on bf16-rounded operands, f32 result; its backward rounds the cotangent
+    to bf16 before dX and dW."""
+    return _MixedConv.apply(x, w)
+
+
+class _MixedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        with exact_f32():
+            return xb.float() @ wb.float().t()
+
+    @staticmethod
+    def backward(ctx, ct):
+        xb, wb = ctx.saved_tensors
+        ctb = bf16_round(ct)
+        with exact_f32():
+            d_x = ctb @ wb.float() if ctx.needs_input_grad[0] else None
+            d_w = ctb.t() @ xb.float() if ctx.needs_input_grad[1] else None
+        return d_x, d_w
+
+
+def mxu_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [B, in] @ w[out, in].T`` on bf16-rounded operands, f32 result; its
+    backward rounds the cotangent to bf16 before dX and dW."""
+    return _MixedMatmul.apply(x, w)
 
 
 def conv2d(
@@ -150,9 +225,12 @@ def conv2d(
     mixed: bool = False,
 ) -> torch.Tensor:
     """NHWC conv with an OIHW kernel.  The bias is added after the conv in
-    the output dtype, the JAX package's cast point."""
-    if mixed:
-        x, w = bf16_round(x), bf16_round(w)
+    the output dtype, the JAX package's cast point.  ``mixed`` takes
+    ``mxu_conv2d_f32`` where the JAX package does: SAME, ungrouped, odd
+    kernels; other convs run as they are."""
+    if mixed and padding == "same" and groups == 1 and w.shape[2] % 2 and w.shape[3] % 2:
+        out = mxu_conv2d_f32(x, w)
+        return out + b.to(out.dtype) if b is not None else out
     out = F.conv2d(
         x.permute(0, 3, 1, 2), w.to(x.dtype), None, padding=padding, groups=groups
     ).permute(0, 2, 3, 1)
@@ -213,10 +291,11 @@ class Linear(nn.Module):
     ) -> torch.Tensor:
         w = self.weight
         if mixed:
-            x, w = bf16_round(x), bf16_round(w)
-        elif dtype is not None:
-            x, w = x.to(dtype), w.to(dtype)
-        x = x @ w.t()
+            x = mxu_matmul_f32(x, w)
+        else:
+            if dtype is not None:
+                x, w = x.to(dtype), w.to(dtype)
+            x = x @ w.t()
         if self.bias is not None:
             x = x + self.bias.to(x.dtype)
         return x

@@ -159,10 +159,31 @@ def save_resume(outf: str, model: nn.Module, optimizer: torch.optim.Optimizer, s
     os.replace(tmp, path)
 
 
+def load_optimizer_state(optimizer: torch.optim.Optimizer, saved: Mapping[str, Any]) -> None:
+    """Load a saved ``optimizer.state_dict()`` into ``optimizer`` and keep
+    its own settings: the learning-rate tensor and the ``fused`` /
+    ``capturable`` flags of ``train/loop.py::make_optimizer`` stay (torch's
+    ``load_state_dict`` would take the file's), and every Adam step count
+    goes where they want it (on the parameter's device for fused or
+    capturable Adam, else on the host).  So a file written by either kind of
+    optimizer, on the card or on the CPU, loads into the other.  It makes new
+    state tensors: a captured train step must be captured after it."""
+    own = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, settings in zip(optimizer.param_groups, own):
+        group.update(settings)
+        on_device = group.get("fused") or group.get("capturable")
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(p.device if on_device else "cpu", torch.float32)
+
+
 def load_resume(outf: str, model: nn.Module, optimizer: torch.optim.Optimizer) -> Tuple[int, int]:
-    """Load the resume file into ``model`` and ``optimizer``; return (step, epoch)."""
+    """Load the resume file into ``model`` and ``optimizer``
+    (``load_optimizer_state``); return (step, epoch)."""
     device = next(model.parameters()).device
     ckpt = torch.load(os.path.join(outf, RESUME_FILE), map_location=device, weights_only=True)
     model.load_state_dict(ckpt["model"], strict=True)
-    optimizer.load_state_dict(ckpt["optimizer"])
+    load_optimizer_state(optimizer, ckpt["optimizer"])
     return int(ckpt["step"]), int(ckpt["epoch"])

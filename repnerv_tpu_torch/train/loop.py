@@ -5,15 +5,21 @@ targets by adaptive pooling -> the loss -> backward -> prune masks on the
 gradients -> Adam(beta, 0.999, eps 1e-8) at the step's learning rate ->
 prune masks on the parameters; PSNR (and MS-SSIM, under ``no_grad`` on the
 detached outputs) as metrics.  torch's Adam with eps outside the square root
-is optax ``scale_by_adam`` followed by ``p - lr * u``.
+is optax ``scale_by_adam`` followed by ``p - lr * u``.  Its learning rate is
+an f32 tensor on the parameters' device that the step writes: no host sync.
 
-The JAX package runs an epoch as one ``lax.scan`` dispatch.  PyTorch runs
-eagerly, so ``run_epoch`` is a Python loop over the steps, with the uint8
-video resident on the device, the epoch's permutation sent to the device
-once, and every metric kept on the device until one fetch at the end of the
-epoch: no host sync per step.  (A CUDA-graph capture of the step is a later
-step of the port.)  The learning rate is a host-side f32 function of the
-step counter, so setting it costs no sync either.
+Two epoch runners over the device-resident uint8 video, both in the JAX
+package's shuffled order and with one fetch of the stacked metrics at the
+end of the epoch:
+
+* ``run_epoch`` drives the eager step (``make_train_step``), a Python loop
+  of steps;
+* ``run_fused_epoch`` drives ``make_epoch_fn``, the counterpart of the JAX
+  package's one ``lax.scan`` dispatch per epoch.  Its step reads everything
+  from fixed device buffers: the epoch's frame-row matrix and learning-rate
+  table (copied once per epoch), a step counter it advances itself, and the
+  metric rows it writes.  On the card that step is captured once as a CUDA
+  graph and replayed once per step; on the CPU the same step runs eagerly.
 
 Decoding runs one batch per call; throughput is timed with CUDA events on
 the card, and a measurement without a card fails rather than timing the CPU.
@@ -22,19 +28,21 @@ the card, and a measurement without a card fails rather than timing the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..config import TrainConfig
+from ..config import TrainConfig, head_plan
 from ..data.frames import FrameStore, adaptive_avg_pool
+from ..kernels import launches
 from ..models.embedding import positional_encoding
 from ..models.generator import Generator
 from ..ops.losses import multi_scale_loss
 from ..ops.metrics import msssim_fn, psnr_fn
-from .schedule import lr_at_step
+from .schedule import lr_at_step, lr_table
 
 DECODE_REPS = 3  # timed whole-video decodes per fps measurement
 
@@ -57,13 +65,17 @@ class EpochMetrics:
 
 
 def make_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Adam:
-    """torch.optim.Adam(betas=(beta, 0.999), eps=1e-8), the reference's; the
-    learning rate is set on every step.  On the card it is the fused
-    implementation: one launch for all parameters instead of a few per
-    tensor."""
-    fused = next(model.parameters()).device.type == "cuda"
+    """torch.optim.Adam(betas=(beta, 0.999), eps=1e-8), the reference's,
+    with the learning rate as an f32 tensor on the parameters' device (the
+    step writes it).  On the card it is the fused implementation (one launch
+    for all parameters) and capturable, so that a CUDA graph can hold its
+    step."""
+    p0 = next(model.parameters())
+    cuda = p0.device.type == "cuda"
+    lr = torch.tensor(cfg.lr, dtype=torch.float32, device=p0.device)
     return torch.optim.Adam(
-        model.parameters(), lr=cfg.lr, betas=(cfg.beta, 0.999), eps=1e-8, fused=fused
+        model.parameters(), lr=lr, betas=(cfg.beta, 0.999), eps=1e-8, fused=cuda,
+        capturable=cuda,
     )
 
 
@@ -82,38 +94,30 @@ def _apply_masks(tensors: Dict[str, torch.Tensor], masks: Masks) -> None:
             t.mul_(m.to(t.dtype))
 
 
-def build_train_step_fn(
-    cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool = True, param_transform=None
-):
-    """The train step: (state, frames [B, H, W, 3] f32, t [B], masks | None)
-    -> (state, aux) with aux["loss"], aux["lr"] and aux["psnr"] [n_stage]
-    (and aux["msssim"]) as device tensors (``lr`` a float).  The state's
-    model and optimizer update in place; its step counter advances.
-
-    ``param_transform`` ({name: parameter} -> {name: tensor}) is applied
-    before the forward only: the forward runs on the transformed tensors
-    (``torch.func.functional_call``) and the gradients reach the latent
-    parameters through it (compress/qat.py's straight-through quantizer)."""
-    mcfg = cfg.model
-    warmup_epochs = cfg.warmup_epochs()
-    # "sample" reproduces the reference's adjust_lr denominator at b > 1
-    samples_per_epoch = (
-        steps_per_epoch * cfg.data.batch_size if cfg.lr_frac_mode == "sample" else None
+def _schedule(cfg: TrainConfig, steps_per_epoch: int) -> dict:
+    """``lr_at_step``'s keyword arguments for ``cfg``."""
+    return dict(
+        base_lr=cfg.lr,
+        steps_per_epoch=steps_per_epoch,
+        epochs=cfg.epochs,
+        warmup_epochs=cfg.warmup_epochs(),
+        lr_type=cfg.lr_type,
+        lr_steps=cfg.lr_steps,
+        # "sample" reproduces the reference's adjust_lr denominator at b > 1
+        samples_per_epoch=(
+            steps_per_epoch * cfg.data.batch_size if cfg.lr_frac_mode == "sample" else None
+        ),
     )
 
-    def step_fn(state: TrainState, frames: torch.Tensor, t: torch.Tensor, masks: Masks = None):
-        lr = float(
-            lr_at_step(
-                state.step,
-                base_lr=cfg.lr,
-                steps_per_epoch=steps_per_epoch,
-                epochs=cfg.epochs,
-                warmup_epochs=warmup_epochs,
-                lr_type=cfg.lr_type,
-                lr_steps=cfg.lr_steps,
-                samples_per_epoch=samples_per_epoch,
-            )
-        )
+
+def _make_update(cfg: TrainConfig, with_msssim: bool, param_transform):
+    """update(state, frames, t, masks, lr) -> aux: one step's forward,
+    backward and Adam update at ``lr`` (a float, or a 0-dim f32 tensor on the
+    device), in place; aux holds the device tensors "loss", "psnr" [n_stage]
+    (and "msssim")."""
+    mcfg = cfg.model
+
+    def update(state: TrainState, frames, t, masks: Masks, lr) -> dict:
         model, opt = state.model, state.optimizer
         embed = positional_encoding(t, mcfg.embed)
         if param_transform is None:
@@ -129,13 +133,37 @@ def build_train_step_fn(
         with torch.no_grad():
             _apply_masks({k: p.grad for k, p in params.items()}, masks)
             for group in opt.param_groups:
-                group["lr"] = lr
+                group["lr"].fill_(lr)  # a 0-dim tensor is copied on the device
             opt.step()
             _apply_masks(params, masks)
             outs = [o.detach() for o in outs]
-            aux = {"loss": loss.detach(), "lr": lr, "psnr": psnr_fn(outs, targets).mean(dim=0)}
+            aux = {"loss": loss.detach(), "psnr": psnr_fn(outs, targets).mean(dim=0)}
             if with_msssim:
                 aux["msssim"] = msssim_fn(outs, targets).mean(dim=0)
+        return aux
+
+    return update
+
+
+def build_train_step_fn(
+    cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool = True, param_transform=None
+):
+    """The train step: (state, frames [B, H, W, 3] f32, t [B], masks | None)
+    -> (state, aux) with aux["loss"], aux["lr"] and aux["psnr"] [n_stage]
+    (and aux["msssim"]) as device tensors (``lr`` a float).  The state's
+    model and optimizer update in place; its step counter advances.
+
+    ``param_transform`` ({name: parameter} -> {name: tensor}) is applied
+    before the forward only: the forward runs on the transformed tensors
+    (``torch.func.functional_call``) and the gradients reach the latent
+    parameters through it (compress/qat.py's straight-through quantizer)."""
+    lr_at = partial(lr_at_step, **_schedule(cfg, steps_per_epoch))
+    update = _make_update(cfg, with_msssim, param_transform)
+
+    def step_fn(state: TrainState, frames: torch.Tensor, t: torch.Tensor, masks: Masks = None):
+        lr = float(lr_at(state.step))
+        aux = update(state, frames, t, masks, lr)
+        aux["lr"] = lr
         state.step += 1
         return state, aux
 
@@ -144,6 +172,27 @@ def build_train_step_fn(
 
 # PyTorch has no jit: the single-device step is the raw step itself
 make_train_step = build_train_step_fn
+
+
+def epoch_rows(store: FrameStore, cfg: TrainConfig, epoch: int,
+               max_steps: Optional[int] = None) -> np.ndarray:
+    """The epoch's frame rows [n_steps, B] in the JAX package's shuffled
+    order (``np.random.default_rng(manual_seed * 100003 + epoch)``)."""
+    b = cfg.data.batch_size
+    idx = store.sample_indices()
+    np.random.default_rng(cfg.manual_seed * 100003 + epoch).shuffle(idx)
+    n_steps = len(idx) // b
+    if max_steps is not None:
+        n_steps = min(n_steps, max_steps)
+    return idx[: n_steps * b].reshape(n_steps, b)
+
+
+def _epoch_metrics(loss, psnr, msssim, lr: float) -> EpochMetrics:
+    """The epoch's means from the stacked per-step metrics on the device:
+    the epoch's one sync."""
+    psnr_m = psnr.mean(dim=0).cpu().numpy()
+    msssim_m = msssim.mean(dim=0).cpu().numpy() if msssim is not None else np.zeros_like(psnr_m)
+    return EpochMetrics(psnr_m, msssim_m, loss.mean().item(), lr)
 
 
 def run_epoch(
@@ -155,17 +204,10 @@ def run_epoch(
     masks: Masks = None,
     max_steps: Optional[int] = None,
 ) -> Tuple[TrainState, EpochMetrics]:
-    """One epoch over the device-resident video in the JAX package's shuffled
-    order (``np.random.default_rng(manual_seed * 100003 + epoch)``), with one
+    """One epoch of eager steps over the device-resident video, with one
     device-to-host fetch of the stacked metrics at the end."""
-    b = cfg.data.batch_size
-    idx = store.sample_indices()
-    np.random.default_rng(cfg.manual_seed * 100003 + epoch).shuffle(idx)
-    n_steps = len(idx) // b
-    if max_steps is not None:
-        n_steps = min(n_steps, max_steps)
     dev = store.frames.device
-    perm = torch.from_numpy(idx[: n_steps * b].reshape(n_steps, b)).to(dev)
+    perm = torch.from_numpy(epoch_rows(store, cfg, epoch, max_steps)).to(dev)
     t_all = torch.from_numpy(np.asarray(store.t, np.float32)).to(dev)
     losses, psnrs, msssims = [], [], []
     lr = 0.0
@@ -176,10 +218,176 @@ def run_epoch(
         if "msssim" in aux:
             msssims.append(aux["msssim"])
         lr = aux["lr"]
-    loss = torch.stack(losses).mean().item()  # the epoch's one sync
-    psnr = torch.stack(psnrs).mean(dim=0).cpu().numpy()
-    msssim = torch.stack(msssims).mean(dim=0).cpu().numpy() if msssims else np.zeros_like(psnr)
-    return state, EpochMetrics(psnr, msssim, loss, lr)
+    return state, _epoch_metrics(torch.stack(losses), torch.stack(psnrs),
+                                 torch.stack(msssims) if msssims else None, lr)
+
+
+@dataclass
+class _StepBuffers:
+    """The fused epoch's fixed device buffers: a captured step reads and
+    writes only these (and the model, the optimizer and the video)."""
+
+    perm: torch.Tensor  # [rows, B] int64: the epoch's frame rows
+    t_all: torch.Tensor  # [N] f32: every frame's t
+    lr: torch.Tensor  # [rows] f32: the epoch's learning rates
+    k: torch.Tensor  # [1] int64: the step within the epoch, advanced by the step
+    loss: torch.Tensor  # [rows] f32
+    psnr: torch.Tensor  # [rows, n_stage] f32
+    msssim: Optional[torch.Tensor]  # [rows, n_stage] f32
+
+
+class FusedEpoch:
+    """The epoch function of ``make_epoch_fn``:
+    ``epoch_fn(state, store, perm [n_steps, B] int, masks) -> (state, aux)``
+    runs ``n_steps`` train steps over the resident video, the step ``i`` on
+    the rows ``perm[i]``; aux holds the stacked per-step metrics "loss"
+    [n_steps], "psnr" [n_steps, n_stage] (and "msssim"), views of device
+    buffers that the next call overwrites, and the host f32 learning rates
+    "lr" [n_steps].
+
+    On the card the first step after a change of what the graph holds (the
+    first step of the run, or after another model, optimizer state, masks,
+    video or batch size) runs eagerly on a side stream, as a real step of
+    the trajectory that also makes every cache and Adam's state; then the
+    step is captured as a CUDA graph, and every later step is one replay.
+    A capture or a replay that fails raises: nothing falls back to eager."""
+
+    streaming = False  # run_fused_epoch refuses a streaming epoch function (ROADMAP A7)
+
+    def __init__(self, cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool,
+                 param_transform):
+        self.cfg = cfg
+        self.with_msssim = with_msssim
+        self.schedule = _schedule(cfg, steps_per_epoch)
+        self.update = _make_update(cfg, with_msssim, param_transform)
+        self.buffers: Optional[_StepBuffers] = None
+        self.graph = None  # torch.cuda.CUDAGraph of the step
+        self.graph_key = None  # what the graph was captured on (_graph_key)
+        self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
+
+    def _buffers(self, store: FrameStore, b: int) -> _StepBuffers:
+        rows = store.num_samples // b
+        dev = store.frames.device
+        buf = self.buffers
+        if buf is None or buf.perm.shape != (rows, b) or buf.perm.device != dev:
+            self.graph = self.graph_key = None  # it reads the old buffers
+            n_stage = sum(head_plan(self.cfg.model))
+
+            def zeros(*shape, dtype=torch.float32):
+                return torch.zeros(*shape, dtype=dtype, device=dev)
+
+            buf = self.buffers = _StepBuffers(
+                perm=zeros(rows, b, dtype=torch.long), t_all=zeros(len(store.t)), lr=zeros(rows),
+                k=zeros(1, dtype=torch.long), loss=zeros(rows), psnr=zeros(rows, n_stage),
+                msssim=zeros(rows, n_stage) if self.with_msssim else None)
+        return buf
+
+    def step(self, state: TrainState, store: FrameStore, buf: _StepBuffers, masks: Masks) -> None:
+        """One train step on the buffers: the rows ``perm[k]``, the learning
+        rate ``lr[k]``, the metrics into row ``k``; then ``k += 1``."""
+        k = buf.k
+        rows = buf.perm.index_select(0, k).reshape(-1)
+        aux = self.update(state, store.gather(rows), buf.t_all.index_select(0, rows), masks,
+                          buf.lr.index_select(0, k).reshape(()))
+        with torch.no_grad():
+            buf.loss.index_copy_(0, k, aux["loss"].reshape(1))
+            buf.psnr.index_copy_(0, k, aux["psnr"].reshape(1, -1))
+            if buf.msssim is not None:
+                buf.msssim.index_copy_(0, k, aux["msssim"].reshape(1, -1))
+        k.add_(1)
+
+    def _graph_key(self, state: TrainState, store: FrameStore, masks: Masks) -> tuple:
+        """Everything a captured step holds by address."""
+        opt = state.optimizer
+        tensors = [store.frames]
+        for group in opt.param_groups:
+            tensors.append(group["lr"])
+            for p in group["params"]:
+                tensors.append(p)
+                tensors.extend(v for v in opt.state.get(p, {}).values() if torch.is_tensor(v))
+        names = tuple(sorted(k for k, m in (masks or {}).items() if m is not None))
+        tensors.extend(masks[k] for k in names)
+        return (id(state.model), id(opt), names, tuple(t.data_ptr() for t in tensors))
+
+    def _capture(self, state: TrainState, store: FrameStore, buf: _StepBuffers,
+                 masks: Masks) -> None:
+        """Run one step eagerly on a side stream, then capture the step."""
+        dev = store.frames.device
+        self.graph = self.graph_key = None  # let the old graph's memory go first
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.step(state, store, buf, masks)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = launches.snapshot()
+        with torch.cuda.graph(graph):
+            self.step(state, store, buf, masks)
+        # the capture ran no kernel: its counts come back at every replay
+        self.replay_counts = launches.since(before)
+        launches.add(self.replay_counts, -1)
+        self.graph, self.graph_key = graph, self._graph_key(state, store, masks)
+
+    def __call__(self, state: TrainState, store: FrameStore, perm: np.ndarray, masks: Masks):
+        n_steps, b = perm.shape
+        buf = self._buffers(store, b)
+        lrs = lr_table(state.step, n_steps, **self.schedule)
+        buf.perm[:n_steps].copy_(torch.from_numpy(np.asarray(perm, np.int64)))
+        buf.t_all.copy_(torch.from_numpy(np.asarray(store.t, np.float32)))
+        buf.lr[:n_steps].copy_(torch.from_numpy(lrs))
+        buf.k.zero_()
+        if store.frames.device.type != "cuda":
+            for _ in range(n_steps):
+                self.step(state, store, buf, masks)
+        else:
+            replays = n_steps
+            if n_steps and (self.graph is None
+                            or self.graph_key != self._graph_key(state, store, masks)):
+                self._capture(state, store, buf, masks)  # step 0 runs in here
+                replays -= 1
+            for _ in range(replays):
+                self.graph.replay()
+                launches.add(self.replay_counts)
+        state.step += n_steps
+        aux = {"loss": buf.loss[:n_steps], "psnr": buf.psnr[:n_steps], "lr": lrs}
+        if buf.msssim is not None:
+            aux["msssim"] = buf.msssim[:n_steps]
+        return state, aux
+
+
+def make_epoch_fn(
+    cfg: TrainConfig,
+    steps_per_epoch: int,
+    with_msssim: bool = False,
+    param_transform=None,
+) -> FusedEpoch:
+    """The whole-epoch train function (the JAX package's ``lax.scan`` epoch):
+    a ``FusedEpoch``, which ``run_fused_epoch`` drives.  ``steps_per_epoch``
+    sizes the learning-rate schedule; ``param_transform`` as in
+    ``build_train_step_fn``, inside the captured step."""
+    return FusedEpoch(cfg, steps_per_epoch, with_msssim, param_transform)
+
+
+def run_fused_epoch(
+    state: TrainState,
+    epoch_fn,
+    store: FrameStore,
+    cfg: TrainConfig,
+    epoch: int,
+    masks: Masks = None,
+    max_steps: Optional[int] = None,
+) -> Tuple[TrainState, EpochMetrics]:
+    """Drive ``make_epoch_fn``: the epoch's shuffled batch matrix on the host
+    (the order of ``run_epoch``), one ``epoch_fn`` call, the stacked metrics
+    reduced with one fetch; the learning rate of the epoch's last step."""
+    if getattr(epoch_fn, "streaming", False):
+        raise NotImplementedError(
+            "a streaming epoch function (host-resident video) is not ported yet (ROADMAP A7)"
+        )
+    perm = epoch_rows(store, cfg, epoch, max_steps)
+    state, aux = epoch_fn(state, store, perm, masks)
+    return state, _epoch_metrics(aux["loss"], aux["psnr"], aux.get("msssim"),
+                                 float(aux["lr"][-1]))
 
 
 def make_eval_step(cfg: TrainConfig, with_msssim: bool = True):

@@ -4,9 +4,11 @@
 Every improving epoch snapshots the model's state on the device (a
 ``clone()`` of each tensor: no host transfer, no disk write).  An epoch
 whose train PSNR is NaN or more than ``recover_drop_db`` below the running
-best is a collapse: the snapshot is loaded back and the optimizer is made
-anew (fresh Adam moments; the collapsed moments are part of the degenerate
-point), keeping the global step so the LR schedule goes on where it was.
+best is a collapse: the snapshot is copied back into the parameters and
+Adam's moments and step counts are zeroed (fresh moments; the collapsed
+ones are part of the degenerate point), both in place, so that a captured
+train step (``loop.make_epoch_fn``) goes on with the same tensors; the
+global step carries on, so the LR schedule goes on where it was.
 Bounded by ``max_recoveries``; ``finalize`` never returns a collapsed
 endpoint.  ``recover_drop_db <= 0`` disables the guard.
 """
@@ -19,7 +21,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..config import TrainConfig
-from .loop import TrainState, make_optimizer
+from .loop import TrainState
 
 
 def snapshot(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -31,7 +33,6 @@ class DivergenceGuard:
     """Host-side collapse detector + restore-best recovery for one run."""
 
     def __init__(self, cfg: TrainConfig, log: Optional[Callable[[str], None]] = None):
-        self.cfg = cfg
         self.drop_db = float(cfg.recover_drop_db)
         self.max_recoveries = int(cfg.max_recoveries)
         self.enabled = self.drop_db > 0
@@ -48,8 +49,13 @@ class DivergenceGuard:
         return math.isnan(psnr) or psnr < self.best_psnr - self.drop_db
 
     def _restore(self, state: TrainState) -> TrainState:
-        state.model.load_state_dict(self._best_state)
-        return TrainState(state.model, make_optimizer(self.cfg, state.model), state.step)
+        with torch.no_grad():
+            state.model.load_state_dict(self._best_state)  # copies into the parameters
+            for st in state.optimizer.state.values():
+                for v in st.values():
+                    if torch.is_tensor(v):
+                        v.zero_()  # zero moments at step 0: a fresh Adam
+        return state
 
     def observe(self, epoch: int, psnr: float, state: TrainState):
         """Feed one epoch's train PSNR; returns ``(state, recovered)``."""

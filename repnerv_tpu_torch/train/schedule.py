@@ -7,8 +7,10 @@
 * step: ``0.1 ** sum(frac_epoch >= lr_steps)``; const / plateau: 1.
 
 Computed on the host in float32 with the JAX package's operation order, so
-the step's learning rate is the same f32 number on both sides; a Python
-float of it goes into the optimizer, with no device work and no sync.
+the step's learning rate is the same f32 number on both sides.  The eager
+step writes it into the optimizer's learning-rate tensor; the fused epoch
+sends the epoch's ``lr_table`` to the device once and its captured step
+reads its own entry there.
 """
 
 from __future__ import annotations
@@ -71,3 +73,10 @@ def lr_at_step(
         frac_epoch, epochs=epochs, warmup_epochs=warmup_epochs, lr_type=lr_type, lr_steps=lr_steps
     )
     return _F32(_F32(base_lr) * mult)
+
+
+def lr_table(first_step: int, n_steps: int, **schedule) -> np.ndarray:
+    """The learning rates of the global steps ``first_step`` ..
+    ``first_step + n_steps - 1`` as f32 [n_steps]: ``lr_at_step`` of each
+    (``schedule`` is its keyword arguments), element for element."""
+    return np.array([lr_at_step(first_step + i, **schedule) for i in range(n_steps)], _F32)

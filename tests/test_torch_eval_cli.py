@@ -137,6 +137,18 @@ def test_path_a_finetune_matches_jax(in_run):
     assert got["bpp"] == pytest.approx(ref["bpp"], rel=1e-2)
 
 
+def test_path_a_finetune_in_mixed_matches_jax(in_run):
+    """--finetune with --compute_dtype mixed (refused before the port had
+    its custom VJPs): PATH A through the fused epoch in "mixed" on both
+    sides, the PATH A test's bounds."""
+    argv = ["--prune_ratio", "0.3", "--quant_bit", "8", "--finetune", "--finetune_epochs", "1",
+            "--compute_dtype", "mixed"]
+    ref, got, _ = _both(argv, "finetune_e1_pr0.30_q8.txt")
+    assert got["prune_ratio"] == ref["prune_ratio"]
+    assert got["val_psnr"][-1] == pytest.approx(ref["val_psnr"][-1], abs=1e-3)
+    assert got["bpp"] == pytest.approx(ref["bpp"], rel=1e-2)
+
+
 def test_rd_sweep_matches_jax(in_run):
     from repnerv_tpu.cli import eval_main as jeval
 
@@ -157,7 +169,6 @@ def test_rd_sweep_matches_jax(in_run):
         (["--mesh_shape", "2"], "A8"),
         (["--host_budget_mb", "64"], "A7"),
         (["--dataset", "corpus"], "A7"),
-        (["--finetune", "--compute_dtype", "mixed"], "A1"),
     ],
 )
 def test_eval_cli_refuses_later_slices(tmp_path, monkeypatch, capsys, extra, row):

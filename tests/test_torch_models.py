@@ -200,11 +200,23 @@ def test_generator_bf16_matches_jax():
     np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), atol=2e-2)
 
 
-def test_generator_refuses_unported_modes():
-    gen = Generator(port_model_cfg(tiny_model(compute_dtype="mixed")))
-    gen.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        gen(torch.zeros(1, gen.cfg.embed_length))
+def test_generator_trains_in_mixed():
+    """compute_dtype "mixed" trains (it was refused before the port had its
+    custom VJPs): a train-mode forward of f32 frames that matches the JAX
+    package's, and a backward that reaches every parameter."""
+    cfg = tiny_model(branch_type="ERB", fc_hw_dim="4_4_8", strides=(2, 2), lower_width=6,
+                     compute_dtype="mixed")
+    params = jgen.init_generator(jax.random.PRNGKey(7), cfg)
+    t = np.asarray([0.3, 0.9], np.float32)
+    ref = jgen.apply_generator(params, jemb.positional_encoding(jnp.asarray(t), cfg.embed), cfg,
+                               train=True)
+    gen = _port_generator(params, cfg).train()
+    out = gen(positional_encoding(torch.from_numpy(t), cfg.embed))
+    assert out[0].dtype == torch.float32
+    np.testing.assert_allclose(out[0].detach().numpy(), np.asarray(ref[0]), atol=1e-5)
+    out[0].sum().backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in gen.parameters())
 
 
 @pytest.mark.parametrize("online_fuse", [True, False])

@@ -265,7 +265,8 @@ def _weights(state):
 def test_divergence_guard_restores_best_with_fresh_adam(psnrs, restored):
     """As tests/test_recovery.py for the JAX guard: a collapse (> 6 dB below
     the best, or NaN) loads the best on-device snapshot back with fresh Adam
-    moments and keeps the step; a healthy dip changes nothing."""
+    moments (zero, at step 0) and keeps the step; a healthy dip changes
+    nothing."""
     from repnerv_tpu_torch.train.recovery import DivergenceGuard
 
     cfg = TrainConfig(model=port_model_cfg(tiny_model()), epochs=10, lr=5e-3, loss_type="L2")
@@ -284,11 +285,51 @@ def test_divergence_guard_restores_best_with_fresh_adam(psnrs, restored):
     if restored:
         for k, v in new.model.state_dict().items():
             assert torch.equal(v, best[k]), k
-        assert len(new.optimizer.state) == 0  # fresh moments
+        assert all(not v.any() for st in new.optimizer.state.values()
+                   for v in st.values())  # fresh moments
         final, again = guard.finalize(new)
         assert again and final.step == step  # the collapse was the last epoch seen
     else:
         assert new is state
+
+
+def test_divergence_guard_restores_in_place():
+    """A restore copies the snapshot into the parameters and zeroes Adam's
+    moments and step counts in place (C20): the tensors a captured train step
+    holds stay the ones the optimizer and the model use, and the next step
+    equals a fresh Adam's from the snapshot."""
+    from repnerv_tpu_torch.train.recovery import DivergenceGuard
+
+    cfg = TrainConfig(model=port_model_cfg(tiny_model()), epochs=10, lr=5e-3, loss_type="L2")
+    state = _tiny_state(cfg)
+    step = tloop.make_train_step(cfg, steps_per_epoch=1, with_msssim=False)
+    frames = torch.rand(2, 8, 8, 3, generator=torch.Generator().manual_seed(2))
+    t = torch.tensor([0.0, 0.5])
+    state, _ = step(state, frames, t)
+    guard = DivergenceGuard(cfg, log=lambda m: None)
+    guard.observe(0, 30.0, state)
+    best = _weights(state)
+    for _ in range(2):
+        state, _ = step(state, frames, t)
+    params = list(state.model.parameters())
+    moments = [v for st in state.optimizer.state.values() for v in st.values()]
+    lr = state.optimizer.param_groups[0]["lr"]
+    new, rec = guard.observe(1, 10.0, state)
+    assert rec and new is state and new.step == 3
+    assert all(a is b for a, b in zip(new.model.parameters(), params))
+    after = [v for st in new.optimizer.state.values() for v in st.values()]
+    assert len(after) == len(moments) and all(a is b for a, b in zip(after, moments))
+    assert new.optimizer.param_groups[0]["lr"] is lr
+    for k, v in new.model.state_dict().items():
+        assert torch.equal(v, best[k]), k
+
+    fresh = _tiny_state(cfg)
+    fresh.model.load_state_dict(best)
+    fresh.step = new.step
+    new, _ = step(new, frames, t)
+    fresh, _ = step(fresh, frames, t)
+    for k, v in fresh.model.state_dict().items():
+        assert torch.equal(new.model.state_dict()[k], v), k
 
 
 def test_prune_masks_hold_grads_and_weights_at_zero():

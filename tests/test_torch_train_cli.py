@@ -6,6 +6,7 @@ model, resume, and the flags of later slices refused."""
 
 import importlib.util
 import os
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -77,7 +78,6 @@ def test_train_cli_logs_checkpoints_deploys_and_resumes(tmp_path, monkeypatch):
     "extra,row",
     [
         (["--mesh_shape", "2"], "A8"),
-        (["--compute_dtype", "mixed"], "A1"),
         (["--host_budget_mb", "64"], "A7"),
         (["--dataset", "photo"], "A7"),
         (["--profile"], "profiler"),
@@ -90,6 +90,28 @@ def test_train_cli_refuses_later_slices(tmp_path, monkeypatch, capsys, extra, ro
     assert e.value.code == 2
     assert row in capsys.readouterr().err
     assert not os.path.exists("result")
+
+
+@pytest.mark.parametrize("extra", [["--compute_dtype", "mixed"],
+                                   ["--compute_dtype", "mixed", "--remat"]])
+def test_train_cli_trains_in_mixed(tmp_path, monkeypatch, extra):
+    """--compute_dtype mixed trains to the end through the fused epoch (it
+    was refused before the port had its custom VJPs): finite losses, the
+    .pth files, and the same history as the eager epoch runner's."""
+    monkeypatch.chdir(tmp_path)
+    res = train_main.main(ARGV + ["-e", "2"] + extra)
+    hist = res["history"]
+    assert [h["epoch"] for h in hist] == [1, 2]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["psnr"][-1]) for h in hist)
+    assert res["state"].model.cfg.compute_dtype == "mixed"
+    for name in ("model_latest.pth", "model_latest_deploy.pth", ckpt.RESUME_FILE):
+        assert os.path.exists(os.path.join(res["outf"], name)), name
+
+    real = train_main.run_training
+    monkeypatch.setattr(train_main, "run_training",
+                        lambda cfg, device: real(replace(cfg, fused_epoch=False), device))
+    eager = train_main.main(ARGV + ["-e", "2", "--outf", "eager"] + extra)["history"]
+    assert [(h["loss"], h["psnr"]) for h in eager] == [(h["loss"], h["psnr"]) for h in hist]
 
 
 def test_train_cli_needs_a_card_by_default(tmp_path, monkeypatch):
