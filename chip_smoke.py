@@ -54,6 +54,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                serves the .rnvb: 2 K1 + 2 K2 launches per batch (both K2 on
                the wgmma route), frames vs the plain path, fps of the int8,
                bf16 and plain paths
+  9. out-of-core — the flagship trained from its 16 frames in pinned host
+               memory (rung 2: --hbm_budget_mb 1, 16 MiB chunks of 6, 6 and
+               4 steps copied on a side stream under the graph's replays) vs
+               from the device (rung 1), bf16 and f32: per-step losses from
+               the same weights, launches of an epoch of replays, chunk
+               copies, ms per step in turns (rung 1, 2, 2, 1), device busy
+               ms, idle share and the copies' overlap with kernels (the
+               torch.profiler timeline), the H2D rate; from the frames as
+               PNG files on disk (rung 3, a DirFrames: --host_budget_mb 1),
+               losses vs rung 2, ms per step, and train_main from the
+               directory; train_main on rung 2 (bf16, --eval_fps) and
+               eval_main's PATH A finetune from a host store
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
 heavy part).  The last line is {"ok": true, "device": {...}}.  Needs no
@@ -80,7 +92,7 @@ import torch.nn.functional as F
 from repnerv_tpu_torch.cli import decode_main, eval_main, train_main
 from repnerv_tpu_torch.compress.bitstream import read_bitstream, write_bitstream
 from repnerv_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
-from repnerv_tpu_torch.data.frames import FrameStore, synthetic_video
+from repnerv_tpu_torch.data.frames import DirFrames, FrameStore, make_frame_store, synthetic_video
 from repnerv_tpu_torch.kernels import build
 from repnerv_tpu_torch.kernels import decode as dk
 from repnerv_tpu_torch.kernels import decode_int8 as k8
@@ -94,10 +106,12 @@ from repnerv_tpu_torch.train.loop import (
     init_train_state,
     make_decode_fn,
     make_epoch_fn,
+    make_streaming_epoch_fn,
     make_train_step,
     measure_decode_fps,
     run_epoch,
     run_fused_epoch,
+    stream_chunk_steps,
 )
 
 SEED = 0
@@ -152,7 +166,10 @@ PER_EVAL_FRAME = {"K3": 0, "K4": 0, "K5": 5}
 # epoch: the same kernels in the same order, so the losses agree to the bit
 # but where cuDNN's dX / dW algorithms sum in an order that is not fixed
 # (f32: the stage-0 conv and the fused stages' dX / dW; mixed: every conv of
-# the step, 1e6 f32 products a dW sum at 720p; bf16 rounds each dW to bf16)
+# the step, 1e6 f32 products a dW sum at 720p; bf16 rounds each dW to bf16).
+# graph_vs_eager holds cuDNN to its deterministic algorithms: without them,
+# two eager mixed epochs alone differed by up to 7.5e-5 over 16 steps
+# (NVIDIA H100 80GB HBM3, 700 W).
 GRAPH_TOL = {"bfloat16": 1e-3, "float32": 1e-5, "mixed": 1e-4}
 # one step, kernel path vs --no_pallas_train, from the same weights and batch:
 # f32 sums the same products in other orders (TF32 off): loss within 1e-5
@@ -1027,11 +1044,19 @@ def graph_vs_eager(dtype: str, store: FrameStore) -> dict:
     both, in turns (eager, graph, graph, eager)."""
     cfg = _train_cfg(dtype, True)
     rows = epoch_rows(store, cfg, 0)
-    eager = eager_losses(cfg, store, rows)
-    again = eager_losses(cfg, store, rows)
-    state = init_train_state(cfg, "cuda", seed=SEED)
-    epoch_fn = make_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True)
-    state, aux = epoch_fn(state, store, rows, None)
+    # cuDNN's deterministic dX / dW algorithms for the three trajectories
+    # (the capture picks its algorithms under the same flag): eager vs eager
+    # is then the same sum order, and graph vs eager tests the graph alone
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = eager_losses(cfg, store, rows)
+        again = eager_losses(cfg, store, rows)
+        state = init_train_state(cfg, "cuda", seed=SEED)
+        epoch_fn = make_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True)
+        state, aux = epoch_fn(state, store, rows, None)
+    finally:
+        torch.backends.cudnn.deterministic = saved
     graph = aux["loss"].cpu()
     rel = ((graph - eager).abs() / eager.abs()).max().item()
     rel_eager = ((again - eager).abs() / eager.abs()).max().item()
@@ -1345,6 +1370,347 @@ def phase_compress(tmp: str) -> dict:
     return results
 
 
+# phase 9, out-of-core: the flagship trained from a video on the host (rung 2)
+# and from a frame directory on disk (rung 3).  16 MiB chunks at 2,764,800 B a
+# 720p step: 6 steps a chunk, chunks of 6, 6 and 4 an epoch (a ring of 12).
+OOC_CHUNK_MB = 16
+OOC_CHUNKS = (6, 6, 4)
+OOC_ARGV = ["--hbm_budget_mb", "1", "--stream_chunk_mb", str(OOC_CHUNK_MB)]
+
+
+def _merged(intervals: list) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(intervals: list, merged: list) -> float:
+    """Length of ``intervals`` that lies inside the union ``merged``."""
+    total = 0.0
+    for a, b in intervals:
+        for c, d in merged:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def timeline(run, trace_path: str) -> dict:
+    """torch.profiler timeline of ``run()`` (its chrome trace): device busy
+    ms (the union of every kernel, copy and set on the card), kernel ms,
+    the pinned host-to-device copies' ms and the part of it that lies under
+    kernels (the copy engine working while the SMs do)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, copies, other = [], [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "kernel":
+            kernels.append(span)
+        elif cat == "gpu_memcpy" and "HtoD" in name and "Pinned" in name:
+            copies.append(span)
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            other.append(span)
+    if not kernels:
+        raise RuntimeError("the profiler's timeline holds no kernel")
+    k_merged = _merged(kernels)
+    busy = _merged(kernels + copies + other)
+    copy_us = sum(b - a for a, b in copies)
+    return {"busy_ms": sum(b - a for a, b in busy) / 1e3,
+            "kernel_ms": sum(b - a for a, b in k_merged) / 1e3,
+            "copies": len(copies), "copy_ms": copy_us / 1e3,
+            "copy_under_kernels_ms": _covered(copies, k_merged) / 1e3}
+
+
+def rung_epoch_ms(streaming: bool, cfg: TrainConfig, store: FrameStore, trace: str = "") -> dict:
+    """ms per step of an epoch of the fused epoch (resident) or of the
+    streaming epoch (host or disk), CUDA events around the epoch after a first
+    epoch (the eager step and the capture); with ``trace`` also the timeline
+    of a third epoch: device busy ms a step, idle share, copy overlap."""
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    maker = make_streaming_epoch_fn if streaming else make_epoch_fn
+    fn = maker(cfg, TRAIN_FRAMES, with_msssim=True)
+    state, _ = run_fused_epoch(state, fn, store, cfg, 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, _ = run_fused_epoch(state, fn, store, cfg, 1)
+    end.record()
+    end.synchronize()
+    out = {"ms": start.elapsed_time(end) / TRAIN_FRAMES}
+    if trace:
+        try:
+            tl = timeline(lambda: run_fused_epoch(state, fn, store, cfg, 2), trace)
+        except RuntimeError as e:  # the profiler could not trace the card here
+            log(f"[ooc] timeline not measured ({e})")
+            return out
+        out.update({k: v / TRAIN_FRAMES if k.endswith("_ms") else v for k, v in tl.items()})
+        out["idle_share"] = max(0.0, 1 - out["busy_ms"] / out["ms"])
+        out["copy_overlap"] = (tl["copy_under_kernels_ms"] / tl["copy_ms"]
+                               if tl["copy_ms"] else None)
+    return out
+
+
+def h2d_rate(store: FrameStore, rows: np.ndarray) -> dict:
+    """The card's host-to-device rate for one chunk: the frames of ``rows``
+    copied from the pinned host video into a device buffer, frame by frame on
+    a side stream as the streaming epoch copies them; CUDA events on that
+    stream, median of 5 after a warm-up."""
+    src = torch.from_numpy(store.frames)
+    if not src.is_pinned():
+        raise AssertionError("the host store is not in pinned memory")
+    dst = torch.empty((len(rows), *src.shape[1:]), dtype=torch.uint8, device="cuda")
+    side = torch.cuda.Stream()
+    times = []
+    for rep in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            for j, r in enumerate(rows):
+                dst[j].copy_(src[int(r)], non_blocking=True)
+            end.record(side)
+        end.synchronize()
+        if rep:
+            times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    return {"chunk_bytes": dst.numel(), "ms": ms, "gb_s": dst.numel() / ms / 1e6}
+
+
+def _losses_line(name: str, losses: torch.Tensor) -> str:
+    return f"{name} " + " ".join(f"{v:.7f}" for v in losses.tolist())
+
+
+def phase_outofcore(tmp: str, path_a_counts: dict) -> dict:
+    """The flagship from a host-resident video (rung 2, the streaming epoch
+    over pinned memory) against the resident one (rung 1), bf16 and f32;
+    from a frame directory on disk (rung 3); train_main end to end on rung 2;
+    eval_main's PATH A finetune from a host store."""
+    cwd = os.getcwd()
+    data = DataConfig(dataset="synth", synthetic_frames=TRAIN_FRAMES, synthetic_hw=(720, 1280),
+                      hbm_budget_mb=1, stream_chunk_mb=OOC_CHUNK_MB)
+    host = make_frame_store(data, "cuda")
+    if host.resident or not torch.from_numpy(host.frames).is_pinned():
+        raise AssertionError("--hbm_budget_mb 1 did not leave the video in pinned host memory")
+    device_store = FrameStore(frames=torch.from_numpy(host.frames).cuda(), t=host.t)
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(_train_cfg(dtype, True), data=data)
+        chunk = stream_chunk_steps(host, cfg)
+        rows = epoch_rows(host, cfg, 0)
+        a = init_train_state(cfg, "cuda", seed=SEED)
+        resident = make_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True)
+        a, aux = resident(a, device_store, rows, None)
+        ref = aux["loss"].cpu()
+        b = init_train_state(cfg, "cuda", seed=SEED)
+        streaming = make_streaming_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True)
+        b, aux = streaming(b, host, rows, None, chunk)
+        got = aux["loss"].cpu()
+        rel = ((got - ref).abs() / ref.abs()).max().item()
+        ok = rel <= GRAPH_TOL[dtype] and bool(torch.isfinite(got).all())
+        log(f"[ooc] {dtype}: " + _losses_line("rung 1 per-step losses", ref))
+        log(f"[ooc] {dtype}: " + _losses_line("rung 2 per-step losses", got))
+        log(f"[ooc] {dtype}: rung 2 (host, chunks of {chunk}) vs rung 1 (resident), from the same "
+            f"weights: largest relative difference {rel:.3e} (tol {GRAPH_TOL[dtype]:g}); equal "
+            f"bits {torch.equal(got, ref)} {'ok' if ok else 'FAIL'}")
+        if not ok or chunk != OOC_CHUNKS[0]:
+            raise AssertionError(f"{dtype}: rung 2 differs from rung 1 by {rel} (chunk {chunk})")
+        del a, resident
+        copies_before, graph = streaming.chunk_copies, streaming.graph
+        reset_counts()  # an epoch of rung-2 replays starts here
+        b, _ = run_fused_epoch(b, streaming, host, cfg, 1)
+        counts = launch_counts()  # ... and ends here
+        n_copies = streaming.chunk_copies - copies_before
+        if streaming.graph is not graph:
+            raise AssertionError(f"{dtype}: the second rung-2 epoch captured its step again")
+        want = {k: v * TRAIN_FRAMES for k, v in PER_STEP.items()}
+        log(f"[ooc] {dtype}: rung 2 launches in an epoch of {TRAIN_FRAMES} replayed steps "
+            f"{ {k: counts[k] for k in want} } (expect {want}); {n_copies} chunk copies "
+            f"(expect {len(OOC_CHUNKS)})")
+        if any(counts[k] != v for k, v in want.items()) or n_copies != len(OOC_CHUNKS):
+            raise AssertionError(f"{dtype}: rung 2 epoch launched {counts}, {n_copies} copies")
+        del b, streaming
+        torch.cuda.empty_cache()
+        runs = {False: [], True: []}
+        for stream in (False, True, True, False):  # rung 1, rung 2, rung 2, rung 1
+            first = not runs[stream]
+            trace = os.path.join(tmp, f"ooc_{dtype}_{int(stream)}.json") if first else ""
+            runs[stream].append(rung_epoch_ms(stream, cfg, host if stream else device_store,
+                                              trace))
+            torch.cuda.empty_cache()
+        res = {"max_rel_loss_diff": rel, "equal_bits": torch.equal(got, ref),
+               "losses_rung1": ref.tolist(), "losses_rung2": got.tolist(),
+               "replay_launches": counts, "chunk_copies_per_epoch": n_copies,
+               "h2d": h2d_rate(host, rows[:chunk].reshape(-1))}
+        for stream, name in ((False, "rung1"), (True, "rung2")):
+            r = runs[stream]
+            res[name] = {"ms": statistics.mean(x["ms"] for x in r), "runs_ms": [x["ms"] for x in r],
+                         **{k: v for k, v in r[0].items() if k != "ms"}}
+            log(f"[ooc] {dtype}: {name} step {res[name]['ms']:.3f} ms "
+                f"({', '.join(f'{x:.3f}' for x in res[name]['runs_ms'])}: CUDA events around an "
+                f"epoch of {TRAIN_FRAMES} steps)" + _timeline_text(r[0]))
+        h2d = res["h2d"]
+        log(f"[ooc] {dtype}: H2D copy of one chunk ({h2d['chunk_bytes']} B, frame by frame from "
+            f"pinned memory on a side stream): {h2d['ms']:.3f} ms, {h2d['gb_s']:.2f} GB/s "
+            "(CUDA events)")
+        results[dtype] = res
+
+    results["rung3"] = _rung3(tmp, host, results)
+    results["train_main_rung2"] = _train_main_rung2(tmp, cwd)
+    results["path_a_host"] = _path_a_host(tmp, path_a_counts)
+    return results
+
+
+def _timeline_text(r: dict) -> str:
+    if "busy_ms" not in r:
+        return "; device time not measured"
+    text = (f"; device busy {r['busy_ms']:.3f} ms a step (idle share {r['idle_share']:.3f}), "
+            f"kernels {r['kernel_ms']:.3f} ms (torch.profiler timeline)")
+    if r["copies"]:
+        text += (f"; {r['copies']} pinned H2D copies, {r['copy_ms']:.3f} ms a step of copy time, "
+                 f"{r['copy_under_kernels_ms']:.3f} ms of it under kernels (overlap "
+                 f"{r['copy_overlap']:.3f})")
+    return text
+
+
+def _rung3(tmp: str, host: FrameStore, results: dict) -> dict:
+    """Rung 3: the 16 frames as PNGs, trained from disk (DirFrames) by the
+    streaming epoch (per-step losses against rung 2's) and by train_main."""
+    try:
+        from PIL import Image
+    except ImportError:
+        log("[ooc] rung 3 not run: PIL is not installed on this machine (it writes and reads "
+            "the PNG frames)")
+        return {"run": False}
+    d = os.path.join(tmp, "ooc", "pngs")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    for i, frame in enumerate(host.frames):
+        Image.fromarray(frame).save(os.path.join(d, f"f{i:04d}.png"))
+    log(f"[ooc] rung 3: wrote {len(host.frames)} PNG frames in {time.perf_counter() - t0:.1f} s")
+    data = DataConfig(dataset="pngs", data_dir=os.path.dirname(d), host_budget_mb=1,
+                      hbm_budget_mb=1, stream_chunk_mb=OOC_CHUNK_MB)
+    disk = make_frame_store(data, "cuda")
+    if not isinstance(disk.frames, DirFrames):
+        raise AssertionError(f"--host_budget_mb 1 gave a {type(disk.frames).__name__}")
+    out = {"run": True}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(_train_cfg(dtype, True), data=data)
+        state = init_train_state(cfg, "cuda", seed=SEED)
+        fn = make_streaming_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True)
+        state, aux = fn(state, disk, epoch_rows(disk, cfg, 0), None, stream_chunk_steps(disk, cfg))
+        got = aux["loss"].cpu()
+        ref = torch.tensor(results[dtype]["losses_rung2"])
+        rel = ((got - ref).abs() / ref.abs()).max().item()
+        log(f"[ooc] {dtype}: " + _losses_line("rung 3 per-step losses", got))
+        log(f"[ooc] {dtype}: rung 3 (PNG frames on disk) vs rung 2: largest relative difference "
+            f"{rel:.3e} (tol {GRAPH_TOL[dtype]:g}); equal bits {torch.equal(got, ref)}")
+        if rel > GRAPH_TOL[dtype]:
+            raise AssertionError(f"{dtype}: rung 3 differs from rung 2 by {rel}")
+        del state, fn
+        timing = rung_epoch_ms(True, cfg, disk, os.path.join(tmp, f"ooc_{dtype}_disk.json"))
+        log(f"[ooc] {dtype}: rung3 step {timing['ms']:.3f} ms (CUDA events around an epoch of "
+            f"{TRAIN_FRAMES} steps, PNG decode on the host included)" + _timeline_text(timing))
+        out[dtype] = {"max_rel_loss_diff_vs_rung2": rel, "equal_bits_vs_rung2": torch.equal(got, ref),
+                      **timing}
+        torch.cuda.empty_cache()
+    # train_main from the directory: the store it builds is a DirFrames
+    made = []
+    real = train_main.make_frame_store
+    cwd = os.getcwd()
+
+    def spy(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    train_main.make_frame_store = spy
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        res = train_main.main(TRAIN_ARGV + ["--compute_dtype", "bfloat16", "--outf", "ooc_disk",
+                                            "--dataset", "pngs", "--data_dir", os.path.dirname(d),
+                                            "--synthetic_frames", "0", "--host_budget_mb", "1"]
+                              + OOC_ARGV)
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        train_main.make_frame_store = real
+    if len(made) != 1 or not isinstance(made[0].frames, DirFrames):
+        raise AssertionError("train_main did not train from a DirFrames")
+    for h in res["history"]:
+        log(f"[ooc] train_main rung 3 ({len(made[0].frames)} PNG files, bf16): epoch "
+            f"{h['epoch']} loss {h['loss']:.6f} PSNR {h['psnr'][-1]:.4f}")
+    log(f"[ooc] train_main rung 3: {wall:.1f} s, val PSNR {res['bests']['val_best_psnr']:.4f}")
+    out["train_main"] = {"history": res["history"], "wall_s": wall, "bests": res["bests"]}
+    return out
+
+
+def _train_main_rung2(tmp: str, cwd: str) -> dict:
+    """train_main on rung 2, bf16, 2 epochs with --eval_fps: the eval runs from
+    the host store.  Launches: 4 K3 + 4 K4 + 7 K5 a step, 5 K5 an eval frame."""
+    os.chdir(tmp)
+    try:
+        reset_counts()  # the main path's run starts here
+        t0 = time.perf_counter()
+        res = train_main.main(TRAIN_ARGV + ["--compute_dtype", "bfloat16", "--eval_fps",
+                                            "--outf", "ooc_host"] + OOC_ARGV)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()  # ... and ends here
+        outf = os.path.abspath(res["outf"])
+    finally:
+        os.chdir(cwd)
+    steps = TRAIN_FRAMES * TRAIN_EPOCHS
+    want = {k: PER_STEP[k] * steps + PER_EVAL_FRAME[k] * steps for k in PER_STEP}
+    log(f"[ooc] train_main on rung 2 (bf16, {TRAIN_EPOCHS} epochs, --eval_fps) in {wall:.1f} s; "
+        f"launches { {k: counts[k] for k in want} } (expect {want})")
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"train_main on rung 2 launched {counts}")
+    with open(os.path.join(outf, "rank0.txt")) as f:
+        log_text = f.read()
+    fps = [float(line.split()[1]) for line in log_text.splitlines() if line.startswith("FPS: ")]
+    if f"Epoch[{TRAIN_EPOCHS}/{TRAIN_EPOCHS}]" not in log_text or len(fps) != TRAIN_EPOCHS:
+        raise AssertionError("train_main on rung 2: no last epoch line or FPS lines in rank0.txt")
+    for name in ("model_latest.pth", "model_latest_deploy.pth", "resume_latest.pt"):
+        if not os.path.exists(os.path.join(outf, name)):
+            raise AssertionError(f"train_main on rung 2 wrote no {name}")
+    hist = res["history"]
+    if not all(np.isfinite(h["loss"]) for h in hist) or not hist[-1]["psnr"][-1] > hist[0]["psnr"][-1]:
+        raise AssertionError("train_main on rung 2: non-finite loss or PSNR not rising")
+    for h in hist:
+        log(f"[ooc] train_main rung 2: epoch {h['epoch']} loss {h['loss']:.6f} PSNR "
+            f"{h['psnr'][-1]:.4f}")
+    log(f"[ooc] train_main rung 2: val PSNR {res['bests']['val_best_psnr']:.4f}")
+    return {"launches": counts, "wall_s": wall, "history": hist, "eval_fps": fps,
+            "bests": res["bests"]}
+
+
+def _path_a_host(tmp: str, path_a_counts: dict) -> dict:
+    """eval_main's PATH A (1 masked finetune epoch) from a host store: the
+    streaming finetune launches what phase 8's resident finetune did."""
+    extra = ["--prune_ratio", str(PRUNE), "--quant_bit", str(QBIT), "--finetune",
+             "--finetune_epochs", "1"] + OOC_ARGV
+    counts, wall = _eval_run(tmp, extra)
+    log(f"[ooc] eval_main PATH A from a host store in {wall:.1f} s; launches {counts} (phase 8's "
+        f"resident PATH A: {path_a_counts})")
+    for k in ("K3", "K4", "K5"):
+        if counts[k] != path_a_counts[k]:
+            raise AssertionError(f"PATH A from a host store launched {counts[k]} {k}, "
+                                 f"the resident one {path_a_counts[k]}")
+    return {"launches": counts, "wall_s": wall}
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -1355,6 +1721,7 @@ def main() -> None:
         train = phase_train(tmp)
         int8_rows = phase_int8_kernel()
         compress = phase_compress(tmp)
+        ooc = phase_outofcore(tmp, compress["path-a"]["launches"])
     for name in sys.modules:
         if name.split(".")[0] in ("jax", "jaxlib", "repnerv_tpu"):
             raise AssertionError(f"the port imported {name}")
@@ -1480,6 +1847,7 @@ def main() -> None:
                else ""))
     log("[train] summary " + json.dumps(train))
     log("[compress] summary " + json.dumps(compress))
+    log("[ooc] summary " + json.dumps(ooc))
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])
     print(json.dumps(

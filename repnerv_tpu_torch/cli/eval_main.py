@@ -17,9 +17,9 @@ appends the JAX package's result lines to the result file it names.
 ``--rd_sweep`` runs the PATH-B rate-distortion grid and writes
 ``rd_sweep.json``.
 
-Flags of later slices are refused with the ROADMAP row that ports them:
-``--mesh_shape`` (A8), ``--host_budget_mb`` and ``--dataset photo|corpus``
-(A7).
+The video may be on the device, on the host or on disk (``--hbm_budget_mb``,
+``--host_budget_mb``; the finetune then streams it).  ``--mesh_shape`` is
+refused: it is a later slice (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -196,7 +196,7 @@ def run_eval(cfg: TrainConfig, device="cuda") -> dict:
             for b in range(len(chunk)):
                 Image.fromarray(arr[b]).save(os.path.join(vis, f"pred_{i0 + b}.png"))
                 if cfg.dump_gt:
-                    gt = val_store.frames[int(chunk[b])].cpu().numpy()
+                    gt = val_store.frame(chunk[b])
                     Image.fromarray(gt).save(os.path.join(vis, f"gt_{i0 + b}.png"))
 
     costs = generator_macs(final_cfg, deploy=final_cfg.deploy)
@@ -301,10 +301,6 @@ def _device(device) -> torch.device:
 def _refusal(a) -> str:
     if a.mesh_shape:
         return "--mesh_shape is not ported yet (ROADMAP A8: multi-GPU)"
-    if a.host_budget_mb:
-        return "--host_budget_mb (out-of-core frames) is not ported yet (ROADMAP A7)"
-    if a.dataset in ("photo", "corpus"):
-        return f"--dataset {a.dataset} is not ported yet (ROADMAP A7)"
     return ""
 
 

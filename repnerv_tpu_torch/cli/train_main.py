@@ -8,19 +8,19 @@
         --single_res --loss Fusion6 -b 1 --lr 5e-4 -e 2 \\
         --compute_dtype bfloat16 [--device cuda]
 
-Per epoch: train over the device-resident video (with ``fused_epoch``, the
-default as in the JAX package: ``make_epoch_fn`` / ``run_fused_epoch``, one
-CUDA graph replay per step on the card; else ``run_epoch``'s eager steps),
-log PSNR / MS-SSIM to
+Per epoch: train over the video (with ``fused_epoch``, the default as in
+the JAX package: ``make_epoch_fn`` / ``run_fused_epoch``, one CUDA graph
+replay per step on the card, or ``make_streaming_epoch_fn`` when the video
+is on the host or on disk, over ``--hbm_budget_mb`` or a frame directory over
+``--host_budget_mb``; else ``run_epoch``'s eager steps), log PSNR / MS-SSIM to
 stdout and ``rank0.txt`` in the JAX package's line format, evaluate at
 ``eval_freq`` and over the last 10 epochs, keep the divergence guard, and at
 ``ckpt_freq`` write ``model_latest.pth`` (+ train / val best) and, for
 reparam branches, the deploy-state ``model_latest_deploy.pth``, plus the
 resume file that a rerun with the same output directory picks up.
 
-Flags of later slices are refused with the ROADMAP row that ports them:
-``--mesh_shape`` (A8), ``--profile`` (the JAX profiler), ``--host_budget_mb``
-(A7, out-of-core).
+Refused: ``--mesh_shape`` (a later slice, ROADMAP A8) and ``--profile``
+(the JAX profiler).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from ..train.loop import (
     init_train_state,
     make_epoch_fn,
     make_eval_step,
+    make_streaming_epoch_fn,
     make_train_step,
     measure_decode_fps,
     run_epoch,
@@ -85,7 +86,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
         f.write(cfg.to_json())
 
     store = make_frame_store(cfg.data, device, split="train")
-    # train and val share the pixels on the device; only the gap differs
+    # train and val share the pixels; only the gap differs
     val_store = dataclasses.replace(store, frame_gap=cfg.data.test_gap)
     steps_per_epoch = max(store.num_samples // cfg.data.batch_size, 1)
 
@@ -110,9 +111,10 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
 
     with_msssim = min(store.hw) > 160
     if cfg.fused_epoch:
-        # one CUDA graph replay per step over the resident video (the JAX
-        # package's one lax.scan dispatch per epoch)
-        train_step = make_epoch_fn(cfg, steps_per_epoch, with_msssim=with_msssim)
+        # one CUDA graph replay per step (the JAX package's one lax.scan
+        # dispatch per epoch); a video on the host or on disk streams chunks
+        maker = make_epoch_fn if store.resident else make_streaming_epoch_fn
+        train_step = maker(cfg, steps_per_epoch, with_msssim=with_msssim)
         run = run_fused_epoch
     else:
         train_step = make_train_step(cfg, steps_per_epoch, with_msssim=with_msssim)
@@ -241,10 +243,6 @@ def _refusal(a) -> str:
         return "--mesh_shape is not ported yet (ROADMAP A8: multi-GPU)"
     if a.profile:
         return "--profile is the JAX profiler's and is not ported"
-    if a.host_budget_mb:
-        return "--host_budget_mb (out-of-core frames) is not ported yet (ROADMAP A7)"
-    if a.dataset in ("photo", "corpus"):
-        return f"--dataset {a.dataset} is not ported yet (ROADMAP A7)"
     return ""
 
 

@@ -3,8 +3,9 @@ Huffman / rANS -> ``.rnvb`` (port of ``repnerv_tpu/compress/pipeline.py``).
 
 * PATH A (``finetune`` with prune_ratio < 1): the train-state model is
   pruned by global L1 masks and finetuned with a FRESH Adam (masks on
-  gradients and weights) through the fused epoch (``make_epoch_fn`` /
-  ``run_fused_epoch``, the masks and the QAT transform inside its captured
+  gradients and weights) through the fused epoch (``make_epoch_fn``, or
+  ``make_streaming_epoch_fn`` for a video on the host or on disk, driven by
+  ``run_fused_epoch``; the masks and the QAT transform inside its captured
   step) as the JAX package does with ``fused_epoch`` and no step limit, else
   through the eager step and ``run_epoch``; then its branches fuse for
   deploy.  ``finetune_lr_mode`` "fresh" runs a new warmup + decay over
@@ -55,6 +56,7 @@ from ..train.loop import (
     TrainState,
     make_epoch_fn,
     make_optimizer,
+    make_streaming_epoch_fn,
     make_train_step,
     run_epoch,
     run_fused_epoch,
@@ -121,8 +123,9 @@ def finetune(
     model.train()
     state = TrainState(model, make_optimizer(cfg, model), step0)
     if cfg.fused_epoch and max_steps_per_epoch is None:
-        epoch_fn = make_epoch_fn(ft_cfg, steps_per_epoch, with_msssim=False,
-                                 param_transform=param_transform)
+        maker = make_epoch_fn if store.resident else make_streaming_epoch_fn
+        epoch_fn = maker(ft_cfg, steps_per_epoch, with_msssim=False,
+                         param_transform=param_transform)
         for epoch in range(cfg.finetune_epochs):
             state, _ = run_fused_epoch(state, epoch_fn, store, ft_cfg, epoch, masks=masks)
     else:

@@ -48,3 +48,23 @@ def positional_encoding(
     # interleave [sin0, cos0, sin1, cos1, ...]
     out = torch.stack([torch.sin(phase), torch.cos(phase)], dim=-1)
     return out.reshape(t.shape[0], 2 * levels).to(dtype)
+
+
+def transformer_positional_table(d_model: int, max_len: int) -> torch.Tensor:
+    """Sinusoidal table [max_len, d_model] of the reference's
+    ``PositionalEncodingTrans``: column 2i is sin(p * 10000^(-2i/d)), 2i+1 its
+    cos, in f32.  Unused by the paper config; part of the reference surface."""
+    position = torch.arange(max_len, dtype=torch.float32)[:, None]
+    div_term = torch.exp(
+        torch.arange(0, d_model, 2, dtype=torch.float32) * (-math.log(10000.0) / d_model)
+    )
+    pe = torch.zeros(max_len, d_model, dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe
+
+
+def transformer_positional_encoding(t: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The table's rows at ``round(t * max_len)`` (half to even)."""
+    index = torch.round(torch.as_tensor(t, dtype=torch.float32) * table.shape[0]).long()
+    return table[index]

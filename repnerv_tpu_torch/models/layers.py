@@ -130,6 +130,17 @@ def pixel_shuffle(x: torch.Tensor, stride: int) -> torch.Tensor:
     return x.reshape(b, h * stride, w * stride, cc)
 
 
+def pixel_unshuffle(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """The inverse of ``pixel_shuffle``: [b, h*s, w*s, cc] -> [b, h, w, cc*s*s]."""
+    if stride == 1:
+        return x
+    b, hs, ws, cc = x.shape
+    h, w = hs // stride, ws // stride
+    x = x.reshape(b, h, stride, w, stride, cc)
+    x = x.permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(b, h, w, cc * stride * stride)
+
+
 # ---------------------------------------------------------------------------
 # Conv (NHWC x OIHW), stride 1, zero padding
 # ---------------------------------------------------------------------------

@@ -8,9 +8,8 @@ detached outputs) as metrics.  torch's Adam with eps outside the square root
 is optax ``scale_by_adam`` followed by ``p - lr * u``.  Its learning rate is
 an f32 tensor on the parameters' device that the step writes: no host sync.
 
-Two epoch runners over the device-resident uint8 video, both in the JAX
-package's shuffled order and with one fetch of the stacked metrics at the
-end of the epoch:
+Two epoch runners, both in the JAX package's shuffled order and with one
+fetch of the stacked metrics at the end of the epoch:
 
 * ``run_epoch`` drives the eager step (``make_train_step``), a Python loop
   of steps;
@@ -20,6 +19,10 @@ end of the epoch:
   table (copied once per epoch), a step counter it advances itself, and the
   metric rows it writes.  On the card that step is captured once as a CUDA
   graph and replayed once per step; on the CPU the same step runs eagerly.
+  For a video on the host or on disk it drives ``make_streaming_epoch_fn``:
+  the same step reads its frames from a ring of device chunk buffers, and
+  the next chunk is copied in on a side stream while the graph replays the
+  steps of the current one.
 
 Decoding runs one batch per call; throughput is timed with CUDA events on
 the card, and a measurement without a card fails rather than timing the CPU.
@@ -27,6 +30,7 @@ the card, and a measurement without a card fails rather than timing the CPU.
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Dict, Optional, Tuple
@@ -36,7 +40,7 @@ import torch
 from torch import nn
 
 from ..config import TrainConfig, head_plan
-from ..data.frames import FrameStore, adaptive_avg_pool
+from ..data.frames import FrameStore, adaptive_avg_pool, read_frames
 from ..kernels import launches
 from ..models.embedding import positional_encoding
 from ..models.generator import Generator
@@ -204,15 +208,18 @@ def run_epoch(
     masks: Masks = None,
     max_steps: Optional[int] = None,
 ) -> Tuple[TrainState, EpochMetrics]:
-    """One epoch of eager steps over the device-resident video, with one
-    device-to-host fetch of the stacked metrics at the end."""
-    dev = store.frames.device
-    perm = torch.from_numpy(epoch_rows(store, cfg, epoch, max_steps)).to(dev)
+    """One epoch of eager steps, with one device-to-host fetch of the stacked
+    metrics at the end.  A resident video is gathered on the device; a host
+    or disk video one batch at a time on the host (``FrameStore.gather``)."""
+    dev = store.device
+    rows_np = epoch_rows(store, cfg, epoch, max_steps)
+    perm = torch.from_numpy(rows_np).to(dev)
     t_all = torch.from_numpy(np.asarray(store.t, np.float32)).to(dev)
     losses, psnrs, msssims = [], [], []
     lr = 0.0
-    for rows in perm:
-        state, aux = step_fn(state, store.gather(rows), t_all[rows], masks)
+    for i, rows in enumerate(perm):
+        frames = store.gather(rows if store.resident else rows_np[i])
+        state, aux = step_fn(state, frames, t_all[rows], masks)
         losses.append(aux["loss"])
         psnrs.append(aux["psnr"])
         if "msssim" in aux:
@@ -225,7 +232,7 @@ def run_epoch(
 @dataclass
 class _StepBuffers:
     """The fused epoch's fixed device buffers: a captured step reads and
-    writes only these (and the model, the optimizer and the video)."""
+    writes only these (and the model, the optimizer and its frames)."""
 
     perm: torch.Tensor  # [rows, B] int64: the epoch's frame rows
     t_all: torch.Tensor  # [N] f32: every frame's t
@@ -252,7 +259,7 @@ class FusedEpoch:
     step is captured as a CUDA graph, and every later step is one replay.
     A capture or a replay that fails raises: nothing falls back to eager."""
 
-    streaming = False  # run_fused_epoch refuses a streaming epoch function (ROADMAP A7)
+    streaming = False  # run_fused_epoch dispatches on this tag
 
     def __init__(self, cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool,
                  param_transform):
@@ -265,9 +272,14 @@ class FusedEpoch:
         self.graph_key = None  # what the graph was captured on (_graph_key)
         self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
 
+    def _check_store(self, store: FrameStore) -> None:
+        if not store.resident:
+            raise ValueError("make_epoch_fn runs over a device-resident video; a host or disk "
+                             "video takes make_streaming_epoch_fn")
+
     def _buffers(self, store: FrameStore, b: int) -> _StepBuffers:
         rows = store.num_samples // b
-        dev = store.frames.device
+        dev = store.device
         buf = self.buffers
         if buf is None or buf.perm.shape != (rows, b) or buf.perm.device != dev:
             self.graph = self.graph_key = None  # it reads the old buffers
@@ -282,12 +294,21 @@ class FusedEpoch:
                 msssim=zeros(rows, n_stage) if self.with_msssim else None)
         return buf
 
+    def _frames(self, store: FrameStore, buf: _StepBuffers, rows: torch.Tensor) -> torch.Tensor:
+        """The step's frames [B, H, W, 3] f32: gathered from the resident video."""
+        return store.gather(rows)
+
+    def _held(self, store: FrameStore) -> list:
+        """The frame tensors a captured step reads by address."""
+        return [store.frames]
+
     def step(self, state: TrainState, store: FrameStore, buf: _StepBuffers, masks: Masks) -> None:
         """One train step on the buffers: the rows ``perm[k]``, the learning
         rate ``lr[k]``, the metrics into row ``k``; then ``k += 1``."""
         k = buf.k
         rows = buf.perm.index_select(0, k).reshape(-1)
-        aux = self.update(state, store.gather(rows), buf.t_all.index_select(0, rows), masks,
+        aux = self.update(state, self._frames(store, buf, rows),
+                          buf.t_all.index_select(0, rows), masks,
                           buf.lr.index_select(0, k).reshape(()))
         with torch.no_grad():
             buf.loss.index_copy_(0, k, aux["loss"].reshape(1))
@@ -299,7 +320,7 @@ class FusedEpoch:
     def _graph_key(self, state: TrainState, store: FrameStore, masks: Masks) -> tuple:
         """Everything a captured step holds by address."""
         opt = state.optimizer
-        tensors = [store.frames]
+        tensors = self._held(store)
         for group in opt.param_groups:
             tensors.append(group["lr"])
             for p in group["params"]:
@@ -312,7 +333,7 @@ class FusedEpoch:
     def _capture(self, state: TrainState, store: FrameStore, buf: _StepBuffers,
                  masks: Masks) -> None:
         """Run one step eagerly on a side stream, then capture the step."""
-        dev = store.frames.device
+        dev = store.device
         self.graph = self.graph_key = None  # let the old graph's memory go first
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -321,14 +342,26 @@ class FusedEpoch:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = launches.snapshot()
-        with torch.cuda.graph(graph):
-            self.step(state, store, buf, masks)
+        # no cyclic collection inside the capture: freeing pinned memory that
+        # a copy used makes the host allocator record and query CUDA events,
+        # which invalidates a capture (torch.cuda.graph collects first)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.step(state, store, buf, masks)
+        finally:
+            if collecting:
+                gc.enable()
         # the capture ran no kernel: its counts come back at every replay
         self.replay_counts = launches.since(before)
         launches.add(self.replay_counts, -1)
         self.graph, self.graph_key = graph, self._graph_key(state, store, masks)
 
-    def __call__(self, state: TrainState, store: FrameStore, perm: np.ndarray, masks: Masks):
+    def _start(self, state: TrainState, store: FrameStore, perm: np.ndarray):
+        """The epoch's buffers with its rows, t, learning rates and k = 0;
+        returns (buffers, the host learning rates)."""
+        self._check_store(store)
         n_steps, b = perm.shape
         buf = self._buffers(store, b)
         lrs = lr_table(state.step, n_steps, **self.schedule)
@@ -336,23 +369,34 @@ class FusedEpoch:
         buf.t_all.copy_(torch.from_numpy(np.asarray(store.t, np.float32)))
         buf.lr[:n_steps].copy_(torch.from_numpy(lrs))
         buf.k.zero_()
-        if store.frames.device.type != "cuda":
-            for _ in range(n_steps):
+        return buf, lrs
+
+    def _steps(self, state: TrainState, store: FrameStore, buf: _StepBuffers, masks: Masks,
+               n: int) -> None:
+        """``n`` steps from the buffers' ``k`` on: eagerly on the CPU; on the
+        card one replay each, the first after a capture when the key moved."""
+        if store.device.type != "cuda":
+            for _ in range(n):
                 self.step(state, store, buf, masks)
-        else:
-            replays = n_steps
-            if n_steps and (self.graph is None
-                            or self.graph_key != self._graph_key(state, store, masks)):
-                self._capture(state, store, buf, masks)  # step 0 runs in here
-                replays -= 1
-            for _ in range(replays):
-                self.graph.replay()
-                launches.add(self.replay_counts)
+            return
+        if n and (self.graph is None or self.graph_key != self._graph_key(state, store, masks)):
+            self._capture(state, store, buf, masks)  # a step runs in here
+            n -= 1
+        for _ in range(n):
+            self.graph.replay()
+            launches.add(self.replay_counts)
+
+    def _finish(self, state: TrainState, buf: _StepBuffers, n_steps: int, lrs: np.ndarray):
         state.step += n_steps
         aux = {"loss": buf.loss[:n_steps], "psnr": buf.psnr[:n_steps], "lr": lrs}
         if buf.msssim is not None:
             aux["msssim"] = buf.msssim[:n_steps]
         return state, aux
+
+    def __call__(self, state: TrainState, store: FrameStore, perm: np.ndarray, masks: Masks):
+        buf, lrs = self._start(state, store, perm)
+        self._steps(state, store, buf, masks, len(perm))
+        return self._finish(state, buf, len(perm), lrs)
 
 
 def make_epoch_fn(
@@ -368,6 +412,141 @@ def make_epoch_fn(
     return FusedEpoch(cfg, steps_per_epoch, with_msssim, param_transform)
 
 
+class StreamingEpoch(FusedEpoch):
+    """The epoch function of ``make_streaming_epoch_fn``: ``FusedEpoch``'s
+    step over a video on the host or on disk.
+    ``epoch_fn(state, store, perm, masks, chunk)`` runs the ``n_steps``
+    steps in chunks of ``chunk`` steps (the last may be short); the step
+    reads its frames from a ring of device buffers [R, B, H, W, 3] uint8,
+    R = min(2 * chunk, rows), slot ``k mod R``, which the chunks fill in
+    turn.  The graph holds the ring's address, never the store's.
+
+    On the card chunk ``c + 1`` is copied on a side stream while the graph
+    replays the steps of chunk ``c``.  Two events per half of the ring order
+    copy -> replay (``ready``) and replay -> the next copy into the same
+    slots (``freed``).  A host array in pinned memory (``make_frame_store``
+    pins it) is copied frame by frame straight from its pages, so the host
+    never waits; any other source (a ``DirFrames``, an array that is not
+    pinned) is first read on the host into one of two pinned staging
+    buffers, and before it refills one the host waits for the copy out of
+    it, one wait a chunk at most.  On the CPU the chunks are read into the
+    ring and the steps run eagerly."""
+
+    streaming = True
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.ring: Optional[torch.Tensor] = None  # [R, B, H, W, 3] uint8
+        self.staging: list = []  # two pinned [chunk, B, H, W, 3] uint8
+        self.copy_stream = None
+        self.ready: list = []  # per half: the copy into it is done
+        self.freed: list = []  # per half: the replays reading it are done
+        self.chunk_copies = 0  # chunks copied into the ring since construction
+
+    def _check_store(self, store: FrameStore) -> None:
+        if store.resident:
+            raise ValueError("make_streaming_epoch_fn streams a host or disk video; a "
+                             "device-resident one takes make_epoch_fn")
+
+    def _ring(self, store: FrameStore, b: int, chunk: int) -> torch.Tensor:
+        h, w = store.hw
+        shape = (min(2 * chunk, store.num_samples // b), b, h, w, 3)
+        if self.ring is None or tuple(self.ring.shape) != shape or self.ring.device != store.device:
+            if self.copy_stream is not None:
+                self.copy_stream.synchronize()  # no copy into the old ring is pending
+            self.graph = self.graph_key = None  # it reads the old ring
+            self.ring = torch.zeros(shape, dtype=torch.uint8, device=store.device)
+            self.staging = []
+            if store.device.type == "cuda":
+                self.copy_stream = torch.cuda.Stream(store.device)
+                self.ready = [torch.cuda.Event() for _ in range(2)]
+                self.freed = [torch.cuda.Event() for _ in range(2)]
+        return self.ring
+
+    def _frames(self, store: FrameStore, buf: _StepBuffers, rows: torch.Tensor) -> torch.Tensor:
+        """The step's frames: ring slot ``k mod R``, then /255 as ``gather``."""
+        slot = buf.k % self.ring.shape[0]
+        return self.ring.index_select(0, slot)[0].float() / 255.0
+
+    def _held(self, store: FrameStore) -> list:
+        return [self.ring]
+
+    def _fill(self, store: FrameStore, perm: np.ndarray, k0: int, k1: int, half: int) -> None:
+        """Copy the frames of steps [k0, k1) into ring slots k0 % R on (no
+        wrap: a chunk starts at 0 or ``chunk`` of a ring of 2 chunks)."""
+        ring = self.ring
+        rows = np.asarray(perm[k0:k1]).reshape(-1)
+        s0 = k0 % ring.shape[0]
+        dst = ring[s0 : s0 + k1 - k0].view(-1, *ring.shape[2:])
+        self.chunk_copies += 1
+        if store.device.type != "cuda":
+            read_frames(store.frames, rows, dst.numpy())
+            return
+        src = None
+        if isinstance(store.frames, np.ndarray):
+            src = torch.from_numpy(store.frames)
+            if not src.is_pinned():
+                src = None
+        if src is None:
+            if not self.staging or self.staging[0].shape[0] < k1 - k0:
+                self.staging = [torch.empty((k1 - k0, *ring.shape[1:]), dtype=torch.uint8,
+                                            pin_memory=True) for _ in range(2)]
+            stage = self.staging[half][: k1 - k0].view(-1, *ring.shape[2:])
+            self.ready[half].synchronize()  # the copy out of this buffer is done
+            read_frames(store.frames, rows, stage.numpy())
+        side = self.copy_stream
+        with torch.cuda.stream(side):
+            side.wait_event(self.freed[half])
+            if src is None:
+                dst.copy_(stage, non_blocking=True)
+            else:
+                for j, r in enumerate(rows):
+                    dst[j].copy_(src[int(r)], non_blocking=True)
+            side.record_event(self.ready[half])
+
+    def __call__(self, state: TrainState, store: FrameStore, perm: np.ndarray, masks: Masks,
+                 chunk: int):
+        buf, lrs = self._start(state, store, perm)
+        n_steps, b = perm.shape
+        self._ring(store, b, chunk)
+        main = torch.cuda.current_stream(store.device) if store.device.type == "cuda" else None
+        if n_steps:
+            self._fill(store, perm, 0, min(chunk, n_steps), 0)
+        for c, k0 in enumerate(range(0, n_steps, chunk)):
+            k1 = min(k0 + chunk, n_steps)
+            if main is not None:
+                main.wait_event(self.ready[c % 2])
+            self._steps(state, store, buf, masks, k1 - k0)
+            if main is not None:
+                main.record_event(self.freed[c % 2])
+            if k1 < n_steps:
+                self._fill(store, perm, k1, min(k1 + chunk, n_steps), (c + 1) % 2)
+        return self._finish(state, buf, n_steps, lrs)
+
+
+def make_streaming_epoch_fn(
+    cfg: TrainConfig,
+    steps_per_epoch: int,
+    with_msssim: bool = False,
+    param_transform=None,
+) -> StreamingEpoch:
+    """The whole-epoch train function for a video on the host or on disk
+    (out-of-core): a ``StreamingEpoch``, tagged ``streaming``, which
+    ``run_fused_epoch`` drives in chunks of ``DataConfig.stream_chunk_mb``, so
+    the device holds two chunks of pixels, never the video.  Arguments as
+    ``make_epoch_fn``'s; ``steps_per_epoch`` sizes the schedule of the whole
+    epoch, not of a chunk."""
+    return StreamingEpoch(cfg, steps_per_epoch, with_msssim, param_transform)
+
+
+def stream_chunk_steps(store: FrameStore, cfg: TrainConfig) -> int:
+    """Steps a chunk of the streaming epoch: as many batches of uint8 pixels
+    as ``stream_chunk_mb`` holds, at least one."""
+    h, w = store.hw
+    per_step = cfg.data.batch_size * h * w * 3
+    return max(1, (cfg.data.stream_chunk_mb << 20) // max(per_step, 1))
+
+
 def run_fused_epoch(
     state: TrainState,
     epoch_fn,
@@ -377,15 +556,16 @@ def run_fused_epoch(
     masks: Masks = None,
     max_steps: Optional[int] = None,
 ) -> Tuple[TrainState, EpochMetrics]:
-    """Drive ``make_epoch_fn``: the epoch's shuffled batch matrix on the host
-    (the order of ``run_epoch``), one ``epoch_fn`` call, the stacked metrics
-    reduced with one fetch; the learning rate of the epoch's last step."""
-    if getattr(epoch_fn, "streaming", False):
-        raise NotImplementedError(
-            "a streaming epoch function (host-resident video) is not ported yet (ROADMAP A7)"
-        )
+    """Drive ``make_epoch_fn`` or, tagged ``streaming``,
+    ``make_streaming_epoch_fn`` (in chunks of ``stream_chunk_steps``): the
+    epoch's shuffled batch matrix on the host (the order of ``run_epoch``),
+    one ``epoch_fn`` call, the stacked metrics reduced with one fetch; the
+    learning rate of the epoch's last step."""
     perm = epoch_rows(store, cfg, epoch, max_steps)
-    state, aux = epoch_fn(state, store, perm, masks)
+    if getattr(epoch_fn, "streaming", False):
+        state, aux = epoch_fn(state, store, perm, masks, stream_chunk_steps(store, cfg))
+    else:
+        state, aux = epoch_fn(state, store, perm, masks)
     return state, _epoch_metrics(aux["loss"], aux["psnr"], aux.get("msssim"),
                                  float(aux["lr"][-1]))
 
@@ -421,8 +601,9 @@ def evaluate(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Validation sweep in frame order -> (psnr [n_stage], msssim [n_stage]).
     The frame rows and the ``t`` column go to the device once, before the
-    sweep (a host tensor copied per batch would make the stream wait)."""
-    dev = store.frames.device
+    sweep (a host tensor copied per batch would make the stream wait); a host
+    or disk video sends its pixels one batch at a time from pinned memory."""
+    dev = store.device
     b = cfg.data.batch_size
     idx = store.sample_indices()
     if max_steps is not None:
@@ -432,7 +613,8 @@ def evaluate(
     psnrs, msssims = [], []
     for i in range(0, len(idx), b):  # the last batch may be short
         rows = rows_all[i : i + b]
-        _, aux = eval_step(model, store.gather(rows), t_all[rows])
+        frames = store.gather(rows if store.resident else idx[i : i + b])
+        _, aux = eval_step(model, frames, t_all[rows])
         psnrs.append(aux["psnr"])
         if "msssim" in aux:
             msssims.append(aux["msssim"])

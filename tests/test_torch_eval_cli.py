@@ -167,8 +167,6 @@ def test_rd_sweep_matches_jax(in_run):
     "extra,row",
     [
         (["--mesh_shape", "2"], "A8"),
-        (["--host_budget_mb", "64"], "A7"),
-        (["--dataset", "corpus"], "A7"),
     ],
 )
 def test_eval_cli_refuses_later_slices(tmp_path, monkeypatch, capsys, extra, row):

@@ -122,17 +122,6 @@ def test_lr_table_equals_lr_at_step(mode, lr_type, lr_steps):
     assert len(set(got.tolist())) > 1 or lr_type == "const"
 
 
-def test_run_fused_epoch_refuses_a_streaming_epoch_fn():
-    def streaming(*args):
-        raise AssertionError("must not run")
-
-    streaming.streaming = True
-    cfg = _cfg()
-    state = loop.init_train_state(cfg, "cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        loop.run_fused_epoch(state, streaming, _store(), cfg, 0)
-
-
 def test_launch_counts_move_by_a_capture_and_its_replays(monkeypatch):
     """The record a capture takes back and a replay adds (C19): ``since``
     reads what the wrappers counted, ``add`` applies it any number of times

@@ -173,10 +173,12 @@ def test_make_frame_store_synth_and_budget():
     store = tframes.make_frame_store(cfg, "cpu")
     ref, _ = jframes.synthetic_video(3, 8, 12, seed=0)
     np.testing.assert_array_equal(store.frames.numpy(), ref)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tframes.make_frame_store(DataConfig(dataset="synth", data_dir="/nonexistent",
-                                            synthetic_frames=64, synthetic_hw=(720, 1280),
-                                            hbm_budget_mb=1), "cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tframes.make_frame_store(DataConfig(dataset="photo", data_dir="/nonexistent",
-                                            synthetic_frames=2), "cpu")
+    # over the device budget the video stays on the host; photo builds
+    big = tframes.make_frame_store(DataConfig(dataset="synth", data_dir="/nonexistent",
+                                              synthetic_frames=2, synthetic_hw=(512, 768),
+                                              hbm_budget_mb=1), "cpu")
+    assert isinstance(big.frames, np.ndarray) and not big.resident
+    np.testing.assert_array_equal(big.frames, jframes.synthetic_video(2, 512, 768, seed=0)[0])
+    photo = tframes.make_frame_store(DataConfig(dataset="photo", data_dir="/nonexistent",
+                                                synthetic_frames=2, synthetic_hw=(16, 24)), "cpu")
+    np.testing.assert_array_equal(photo.frames.numpy(), jframes.photo_video(2, 16, 24)[0])

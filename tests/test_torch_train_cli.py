@@ -78,8 +78,6 @@ def test_train_cli_logs_checkpoints_deploys_and_resumes(tmp_path, monkeypatch):
     "extra,row",
     [
         (["--mesh_shape", "2"], "A8"),
-        (["--host_budget_mb", "64"], "A7"),
-        (["--dataset", "photo"], "A7"),
         (["--profile"], "profiler"),
     ],
 )
