@@ -5,8 +5,10 @@ PyTorch version at the flagship shapes, serve a flagship-width ``.rnvb``
 artifact through ``repnerv_tpu_torch.cli.decode_main``, and train the
 flagship through ``repnerv_tpu_torch.cli.train_main``, compress that
 training run through ``repnerv_tpu_torch.cli.eval_main`` and serve its
-``.rnvb`` in int8, checking that every main path went through the kernels
-and matches its plain path.
+``.rnvb`` in int8, fit a suite of videos through
+``repnerv_tpu_torch.cli.suite_main`` and train and decode over
+``torch.distributed``, checking that every main path went through the
+kernels and matches its plain path.
 
     python3 chip_smoke.py
 
@@ -66,14 +68,32 @@ Phases (each prints its own lines; any failure exits non-zero):
                losses vs rung 2, ms per step, and train_main from the
                directory; train_main on rung 2 (bf16, --eval_fps) and
                eval_main's PATH A finetune from a host store
+ 10. suite + multi-GPU — (a) suite_main --suite_mode sequential on phase 6's
+               flags (bf16, 2 synthetic videos of 8 frames, 2 epochs, 8-bit
+               .rnvb each): the table, each .rnvb against the evaluated
+               weights (bitwise), 4 K3 + 4 K4 + 7 K5 a replayed step, one
+               capture a video; (b) the same in parallel mode (a stream a
+               video): per-step losses equal to (a)'s (cuDNN deterministic),
+               fit seconds in turns (seq, par, par, seq), a steady epoch's
+               ms and device busy share (profiler timeline); (c)
+               train_main --mesh_shape 1 (an NCCL world of one) vs without,
+               bf16 and f32: per-step losses to the bit, launches a replayed
+               step, ms a graph step in turns, the all-reduce's device ms;
+               (d) two gloo ranks on the one card (this script with
+               --gloo-rank, f32, -b 1 each) vs one process at -b 2 over 8
+               steps: losses, weights, the ranks' weights bitwise, ms a step;
+               (e) decode_main --mesh_shape 1 on phase 8's .rnvb, bf16 and
+               int8: frames to the bit, launches a batch, fps in turns
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
-heavy part).  The last line is {"ok": true, "device": {...}}.  Needs no
+heavy part, with a ``library_note`` saying why; K5's is a depthwise
+``F.conv2d`` on the five stacked maps of each moments launch).  The last line is {"ok": true, "device": {...}}.  Needs no
 network; imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -657,6 +677,17 @@ def phase_train_kernels() -> dict:
                          if n_vjp else 0.0)
         vjp_plain_ms = (cuda_ms(lambda: sb.moments_vjp_reference(*cts, x, y, win))
                         if n_vjp else 0.0)
+        # the library's one call for the same moments: a depthwise F.conv2d
+        # (groups = channels) with the 11 x 11 outer product of the window,
+        # VALID, on the five stacked maps x, y, x*x, y*y, x*y (TF32 off);
+        # only the conv is timed, not the stacking
+        maps = torch.stack([x, y, x * x, y * y, x * y]).reshape(1, 5 * n, h, w)
+        taps = torch.tensor(win, dtype=torch.float32, device=dev)
+        kernel2d = torch.outer(taps, taps).expand(5 * n, 1, len(win), len(win)).contiguous()
+        lib_out = F.conv2d(maps, kernel2d, groups=5 * n).reshape(5, n, h - 10, w - 10)
+        lib_err = (lib_out - torch.stack(out)).abs().max().item()
+        lib_ms = cuda_ms(lambda: F.conv2d(maps, kernel2d, groups=5 * n))
+        del maps, lib_out
         # bounds on the fused calls' own bytes: x and y read once and five maps
         # written; the three cotangents, x and y read and d_x written
         fwd_bound = roofline(blur_ops(n, h, w, w - 10, h - 10, 5), nbytes(x, y, *out), "f32")
@@ -667,7 +698,9 @@ def phase_train_kernels() -> dict:
             f"{K5_VJP_RTOL:g} max|ref|) kernel {ms:.3f} ms a call (VJP {vjp_ms:.3f}), {device_ms:.3f} "
             f"(VJP {vjp_device_ms:.3f}) on the card, plain "
             f"{plain_ms:.3f} ms (VJP {vjp_plain_ms:.3f}), bound {fwd_bound['bound_ms']:.4f} ms "
-            f"({fwd_bound['bound_by']}; VJP {vjp_bound['bound_ms']:.4f}) {'ok' if ok else 'FAIL'}")
+            f"({fwd_bound['bound_by']}; VJP {vjp_bound['bound_ms']:.4f}), library (depthwise "
+            f"F.conv2d on the 5 stacked maps) {lib_ms:.3f} ms, max|d| against the kernel "
+            f"{lib_err:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K5 disagrees with its plain version at {name}")
         rows["K5"].append({
@@ -681,6 +714,9 @@ def phase_train_kernels() -> dict:
             "step_plain_ms": n_fwd * plain_ms + n_vjp * vjp_plain_ms,
             "calls_per_step": n_fwd + n_vjp,
             **k5_bound,  # of this shape's calls of one step
+            # the library call for this shape's moments launches of one step
+            "library_ms": n_fwd * lib_ms, "library_max_abs_err": lib_err,
+            "forward_step_ms": n_fwd * ms,
         })
         del out, ref, dx, ref_dx, cts
     # the single-map blur (gauss_blur_valid and its VJP), no longer on the
@@ -1430,6 +1466,7 @@ def timeline(run, trace_path: str) -> dict:
     copy_us = sum(b - a for a, b in copies)
     return {"busy_ms": sum(b - a for a, b in busy) / 1e3,
             "kernel_ms": sum(b - a for a, b in k_merged) / 1e3,
+            "kernel_sum_ms": sum(b - a for a, b in kernels) / 1e3,
             "copies": len(copies), "copy_ms": copy_us / 1e3,
             "copy_under_kernels_ms": _covered(copies, k_merged) / 1e3}
 
@@ -1711,6 +1748,665 @@ def _path_a_host(tmp: str, path_a_counts: dict) -> dict:
     return {"launches": counts, "wall_s": wall}
 
 
+# phase 10, the suite and multi-GPU slice: the suite of phase 6's flagship
+# (paper flags, 720p ERB, -b 1, bf16) over 2 synthetic videos of 8 frames
+SUITE_FRAMES, SUITE_VIDEOS = 8, 2
+SUITE_FLAGS = [
+    (str(SUITE_FRAMES) if TRAIN_ARGV[i - 1] == "--synthetic_frames" else a)
+    for i, a in enumerate(TRAIN_ARGV[:-2])  # without --device cuda
+] + ["--compute_dtype", "bfloat16", "--quant_bit", "8", "--save_bitstream"]
+SUITE_ARGV = SUITE_FLAGS + ["--device", "cuda", "--n_videos", str(SUITE_VIDEOS)]
+# two gloo ranks on the one card (f32, -b 1 each, cuDNN deterministic) over an
+# epoch of 8 steps, held against two references from the same weights:
+# * one process at -b 2: per-step losses within 1e-5 relative, and the first
+#   step's all-reduced gradients within 1e-4 of each tensor's largest |entry|
+#   (phase 6's f32 bounds): the all-reduce sums two rank-local gradients of one
+#   frame each where the one process sums the two frames' products in its own
+#   order.  Its final weights are reported, not bounded: Adam moves an entry
+#   whose gradient is below that summation noise by a sign-sized step, so 8
+#   steps leave such entries up to 2e-3 of the tensor's largest |entry| apart
+#   (2.049e-3 in the first card run, NVIDIA H100 80GB HBM3, 700 W);
+# * one process that runs the data-parallel step's own arithmetic (the two
+#   frames through the -b 1 step one after the other, their gradients summed
+#   and halved, Adam): per-step losses within 1e-6 relative, final weights
+#   within 1e-4 of each tensor's largest |entry| (equal bits are expected:
+#   the same kernels on the same operands);
+# * each other: the ranks' weights equal to the bit
+GLOO_LOSS_RTOL, GLOO_GRAD_RTOL, GLOO_WEIGHT_RTOL, GLOO_SAME_LOSS_RTOL = 1e-5, 1e-4, 1e-4, 1e-6
+GLOO_STEPS = TRAIN_FRAMES // 2
+GLOO_TIMEOUT_S = 600
+
+
+class EpochRecorder:
+    """Records every fused epoch's per-step losses (a device copy at the end
+    of the epoch function, on its stream: no host wait), with the epoch
+    function and the model it trained: wraps ``FusedEpoch._finish``, which
+    every fused, streaming, sharded and suite epoch calls."""
+
+    def __enter__(self):
+        from repnerv_tpu_torch.train.loop import FusedEpoch
+
+        self.calls = []
+        self._cls, self._orig = FusedEpoch, FusedEpoch._finish
+        rec = self
+
+        def _finish(fn, state, buf, n_steps, lrs):
+            rec.calls.append((fn, id(state.model), buf.loss[:n_steps].clone()))
+            return rec._orig(fn, state, buf, n_steps, lrs)
+
+        FusedEpoch._finish = _finish
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._finish = self._orig
+
+    def by_model(self) -> list:
+        """Per-step losses of each model, in the order the models first
+        trained (the suite's video order), concatenated over the epochs."""
+        order, out = [], {}
+        for _, mid, loss in self.calls:
+            if mid not in out:
+                order.append(mid)
+                out[mid] = []
+            out[mid].append(loss.cpu())
+        return [torch.cat(out[m]) for m in order]
+
+    def epoch_fns(self) -> list:
+        fns = []
+        for fn, _, _ in self.calls:
+            if all(fn is not f for f in fns):
+                fns.append(fn)
+        return fns
+
+
+def _deterministic(on: bool) -> bool:
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    return saved
+
+
+def _suite_run(tmp: str, mode: str, name: str, record: bool = False) -> dict:
+    """suite_main in ``mode`` from ``tmp``; launches of the fit apart from
+    those of the eval; with ``record`` the per-step losses by video, the
+    epoch functions, and each .rnvb against the weights it was written from."""
+    from repnerv_tpu_torch.cli import suite_main
+
+    eval_counts = {}
+    evaluate, compress = suite_main.evaluate, suite_main.compress
+    written = {}
+
+    def counted_evaluate(*args, **kwargs):
+        before = launch_counts()
+        out = evaluate(*args, **kwargs)
+        for k, v in launch_counts().items():
+            eval_counts[k] = eval_counts.get(k, 0) + v - before[k]
+        return out
+
+    def recorded_compress(model, cfg, store, **kw):
+        out, report = compress(model, cfg, store, **kw)
+        written[kw["bitstream_path"]] = {k: v.detach().cpu() for k, v in out.state_dict().items()}
+        return out, report
+
+    cwd = os.getcwd()
+    suite_main.evaluate, suite_main.compress = counted_evaluate, recorded_compress
+    os.chdir(tmp)
+    rec = EpochRecorder()
+    try:
+        with rec if record else contextlib.nullcontext():
+            reset_counts()  # the main path's run starts here
+            t0 = time.perf_counter()
+            res = suite_main.main(SUITE_ARGV + ["--suite_mode", mode, "--outf", name,
+                                                "--suite_out", f"{name}.json"])
+            wall = time.perf_counter() - t0
+            counts = launch_counts()  # ... and ends here
+        with open(f"{name}.json") as f:
+            saved = json.load(f)
+    finally:
+        os.chdir(cwd)
+        suite_main.evaluate, suite_main.compress = evaluate, compress
+    rows = res["videos"]
+    if saved != res or len(rows) != SUITE_VIDEOS or not all(
+            np.isfinite(r[k]) for r in rows for k in ("psnr", "msssim", "bpp")):
+        raise AssertionError(f"suite {mode}: table {res}")
+    steps = SUITE_VIDEOS * SUITE_FRAMES * TRAIN_EPOCHS
+    fit = {k: counts[k] - eval_counts.get(k, 0) for k in PER_STEP}
+    want = {k: v * steps for k, v in PER_STEP.items()}
+    if fit != want:
+        raise AssertionError(f"suite {mode}: the fits launched {fit}, expected {want}")
+    out = {"table": res, "wall_s": wall, "launches": counts, "fit_launches": fit,
+           "eval_launches": eval_counts}
+    for path, state in written.items():
+        back = read_bitstream(os.path.join(tmp, path))[0]
+        if list(back) != list(state) or not all(
+                torch.equal(torch.from_numpy(np.asarray(back[k])), state[k]) for k in state):
+            raise AssertionError(f"suite {mode}: {path} does not decode to the evaluated weights")
+    if len(written) != SUITE_VIDEOS:
+        raise AssertionError(f"suite {mode}: {len(written)} .rnvb files")
+    if record:
+        fns = rec.epoch_fns()
+        models = {mid for _, mid, _ in rec.calls}
+        captures = sum(fn.captures for fn in fns)
+        replay = [{k: launches_of(fn.replay_counts)[k] for k in PER_STEP} for fn in fns]
+        if captures != len(models) or len(models) != SUITE_VIDEOS or any(
+                r != PER_STEP for r in replay):
+            raise AssertionError(f"suite {mode}: {captures} captures for {len(models)} videos, "
+                                 f"a replayed step launches {replay}")
+        out.update(losses=rec.by_model(), captures=captures, epoch_fns=len(fns),
+                   replay_launches=replay[0])
+    return out
+
+
+def launches_of(counts) -> dict:
+    """K1..K5 of a ``kernels/launches.py`` record (a replay's counts)."""
+    names = {"K1": (dk, "LAUNCHES"), "K2": (k8, "LAUNCHES"), "K3": (tt, "FWD_LAUNCHES"),
+             "K4": (tt, "BWD_LAUNCHES"), "K5": (sb, "LAUNCHES")}
+    return {k: counts.get((mod.__name__, attr), 0) for k, (mod, attr) in names.items()}
+
+
+def _suite_epoch_timeline(tmp: str, mode: str) -> dict:
+    """One steady suite epoch in ``mode`` (after the epoch that captures):
+    ms of the epoch (CUDA events, its metric fetches included), then the
+    torch.profiler timeline of the next: its ms, device busy ms (busy share:
+    of the same profiled epoch), the kernels' union and their summed time
+    (above the union where two videos' kernels ran at once on the card)."""
+    from repnerv_tpu_torch.cli import suite_main
+    from repnerv_tpu_torch.parallel import suite as psuite
+
+    cfg = suite_main.args_to_config(suite_main.build_parser(eval_mode=False).parse_args(SUITE_FLAGS))
+    stores = suite_main._suite_stores(cfg, SUITE_VIDEOS, "cuda")
+    states = psuite.init_suite_states(cfg, SUITE_VIDEOS, "cuda")
+    steps = SUITE_FRAMES  # -b 1
+    if mode == "parallel":
+        suite_fn = psuite.make_suite_epoch_fn(cfg, steps, SUITE_VIDEOS, with_msssim=True)
+
+        def epoch(e):
+            psuite.run_suite_epoch(states, suite_fn, stores, cfg, e, steps)
+    else:
+        fns = [make_epoch_fn(cfg, steps, with_msssim=True) for _ in range(SUITE_VIDEOS)]
+
+        def epoch(e):
+            for v in range(SUITE_VIDEOS):
+                vcfg = dataclasses.replace(cfg, manual_seed=cfg.manual_seed + v)
+                states[v], _ = run_fused_epoch(states[v], fns[v], stores[v], vcfg, e)
+    epoch(0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    epoch(1)
+    end.record()
+    end.synchronize()
+    out = {"epoch_ms": start.elapsed_time(end)}
+
+    def profiled():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        epoch(2)
+        b.record()
+        b.synchronize()
+        out["profiled_epoch_ms"] = a.elapsed_time(b)
+
+    try:
+        out.update(timeline(profiled, os.path.join(tmp, f"suite_{mode}.json")))
+    except RuntimeError as e:  # the profiler could not trace the card here
+        log(f"[suite] {mode}: timeline not measured ({e})")
+    return out
+
+
+def phase_suite(tmp: str) -> dict:
+    """(a) the sequential and (b) the parallel suite through suite_main: the
+    tables, the .rnvb files, launches, one capture a video, per-step losses
+    equal to the bit; fit seconds in turns and the device busy share."""
+    saved = _deterministic(True)
+    try:
+        seq = _suite_run(tmp, "sequential", "suite_seq", record=True)
+        par = _suite_run(tmp, "parallel", "suite_par", record=True)
+    finally:
+        _deterministic(saved)
+    for mode, r in (("sequential", seq), ("parallel", par)):
+        log(f"[suite] {mode}: suite_main ({SUITE_VIDEOS} videos x {SUITE_FRAMES} frames, 720p, "
+            f"-b 1, bf16, {TRAIN_EPOCHS} epochs, 8-bit .rnvb) in {r['wall_s']:.1f} s; fit "
+            f"{r['table']['fit_seconds']:.3f} s; fit launches {r['fit_launches']} (expect "
+            f"{ {k: v * SUITE_VIDEOS * SUITE_FRAMES * TRAIN_EPOCHS for k, v in PER_STEP.items()} }), "
+            f"eval launches {r['eval_launches']}; a replayed step {r['replay_launches']}; "
+            f"{r['captures']} captures in {r['epoch_fns']} epoch functions; each .rnvb decodes to "
+            "the evaluated weights bit for bit")
+        for row in r["table"]["videos"]:
+            log(f"[suite] {mode}: video {row['video']} PSNR {row['psnr']:.4f} MS-SSIM "
+                f"{row['msssim']:.4f} BPP {row['bpp']:.6f} .rnvb {row['rnvb_bytes']} B")
+    equal = [torch.equal(a, b) for a, b in zip(seq["losses"], par["losses"])]
+    for v, (a, b) in enumerate(zip(seq["losses"], par["losses"])):
+        log(f"[suite] video {v}: " + _losses_line("sequential per-step losses", a))
+        log(f"[suite] video {v}: " + _losses_line("parallel per-step losses  ", b))
+    def rows(r):  # each row but the .rnvb's path (under the run's --outf)
+        return [{k: v for k, v in row.items() if k != "rnvb"} for row in r["table"]["videos"]]
+
+    same_table = rows(par) == rows(seq)
+    log(f"[suite] parallel vs sequential per-step losses, cuDNN deterministic: equal bits "
+        f"{equal}; the tables equal (but the .rnvb paths) {same_table}")
+    if not all(equal) or len(equal) != SUITE_VIDEOS:
+        raise AssertionError("the parallel suite's per-step losses differ from the sequential's")
+    if not same_table:
+        raise AssertionError("the parallel suite's table differs from the sequential's")
+    fits = {"sequential": [], "parallel": []}
+    for mode in ("sequential", "parallel", "parallel", "sequential"):
+        fits[mode].append(_suite_run(tmp, mode, f"suite_{mode[:3]}_t")["table"]["fit_seconds"])
+        torch.cuda.empty_cache()
+    out = {"sequential": {k: v for k, v in seq.items() if k != "losses"},
+           "parallel": {k: v for k, v in par.items() if k != "losses"},
+           "losses_equal_bits": equal}
+    for mode in ("sequential", "parallel"):
+        fit_s = statistics.mean(fits[mode])
+        tl = _suite_epoch_timeline(tmp, mode)
+        torch.cuda.empty_cache()
+        entry = {"fit_s": fit_s, "fit_runs_s": fits[mode], "steady_epoch": tl}
+        text = (f"a steady epoch of both videos {tl['epoch_ms']:.3f} ms "
+                f"({tl['epoch_ms'] / (SUITE_VIDEOS * SUITE_FRAMES):.3f} ms a video-step, CUDA "
+                "events)")
+        if "busy_ms" in tl:
+            tl["busy_share"] = tl["busy_ms"] / tl["profiled_epoch_ms"]
+            tl["kernel_overlap"] = tl["kernel_sum_ms"] / tl["kernel_ms"]
+            text += (f"; the next epoch under torch.profiler {tl['profiled_epoch_ms']:.3f} ms, "
+                     f"device busy {tl['busy_ms']:.3f} ms of it (busy share "
+                     f"{tl['busy_share']:.3f}), kernel time summed {tl['kernel_sum_ms']:.3f} ms "
+                     f"over a union of {tl['kernel_ms']:.3f} ms (x{tl['kernel_overlap']:.3f}; its "
+                     "timeline)")
+        out[mode].update(entry)
+        log(f"[suite] {mode}: fit {fit_s:.3f} s ({', '.join(f'{x:.3f}' for x in fits[mode])}: "
+            f"suite_main's fit_seconds, in turns seq, par, par, seq); {text}")
+    return out
+
+
+def _mesh_epoch_ms(sharded: bool, cfg: TrainConfig, store: FrameStore, mesh,
+                   profile: bool) -> dict:
+    """ms per step of an epoch of the plain or the sharded fused epoch (CUDA
+    events around an epoch after a first one); with ``profile`` the device
+    ms a step of every kernel and copy, and of NCCL's kernels
+    (torch.profiler over a third epoch)."""
+    from repnerv_tpu_torch.parallel import sharding
+
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    fn = (sharding.make_sharded_epoch_fn(cfg, TRAIN_FRAMES, mesh, with_msssim=True) if sharded
+          else make_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True))
+    state, _ = run_fused_epoch(state, fn, store, cfg, 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, _ = run_fused_epoch(state, fn, store, cfg, 1)
+    end.record()
+    end.synchronize()
+    out = {"ms": start.elapsed_time(end) / TRAIN_FRAMES}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_fused_epoch(state, fn, store, cfg, 2)
+            torch.cuda.synchronize()
+        total = nccl = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0.0) or 0.0
+            total += us
+            if "nccl" in e.key.lower():
+                nccl += us
+        if total:
+            out.update(device_ms=total / 1e3 / TRAIN_FRAMES, nccl_ms=nccl / 1e3 / TRAIN_FRAMES)
+            out["idle_share"] = 1 - out["device_ms"] / out["ms"]
+    return out
+
+
+def phase_mesh_train(tmp: str) -> dict:
+    """(c) train_main --mesh_shape 1 (an NCCL world of one) against the run
+    without the flag, bf16 and f32: per-step losses to the bit (cuDNN
+    deterministic), launches of a replayed step; ms a step of the sharded
+    and the plain graph step in turns, the all-reduce's device ms."""
+    from repnerv_tpu_torch.parallel import sharding
+
+    video, t = synthetic_video(TRAIN_FRAMES, 720, 1280, seed=0)
+    store = FrameStore(frames=torch.from_numpy(video).cuda(), t=t)
+    cwd = os.getcwd()
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        runs = {}
+        saved = _deterministic(True)
+        os.chdir(tmp)
+        try:
+            for name, extra in (("plain", []), ("mesh1", ["--mesh_shape", "1"])):
+                with EpochRecorder() as rec:
+                    reset_counts()  # the main path's run starts here
+                    t0 = time.perf_counter()
+                    res = train_main.main(TRAIN_ARGV + ["--compute_dtype", dtype, "--outf",
+                                                        f"mesh_{dtype}_{name}"] + extra)
+                    wall = time.perf_counter() - t0
+                    counts = launch_counts()  # ... and ends here
+                fn, = rec.epoch_fns()
+                runs[name] = {"losses": torch.cat([c[2].cpu() for c in rec.calls]),
+                              "replay": {k: launches_of(fn.replay_counts)[k] for k in PER_STEP},
+                              "type": type(fn).__name__, "captures": fn.captures,
+                              "history": res["history"], "launches": counts, "wall_s": wall}
+        finally:
+            os.chdir(cwd)
+            _deterministic(saved)
+        a, b = runs["plain"], runs["mesh1"]
+        equal = torch.equal(a["losses"], b["losses"])
+        log(f"[mesh] {dtype}: " + _losses_line("train_main per-step losses          ", a["losses"]))
+        log(f"[mesh] {dtype}: " + _losses_line("train_main --mesh_shape 1 per-step", b["losses"]))
+        log(f"[mesh] {dtype}: --mesh_shape 1 ({b['type']}, NCCL world of one) vs without "
+            f"({a['type']}): per-step losses over {len(a['losses'])} steps equal bits {equal}; "
+            f"a replayed step launches {b['replay']} vs {a['replay']}; captures {b['captures']} vs "
+            f"{a['captures']}; whole runs {b['wall_s']:.1f} / {a['wall_s']:.1f} s, launches "
+            f"{b['launches']} vs {a['launches']}")
+        same_history = [(h["loss"], h["lr"]) for h in b["history"]] == [
+            (h["loss"], h["lr"]) for h in a["history"]]
+        if (not equal or b["replay"] != a["replay"] or a["replay"] != PER_STEP
+                or b["type"] != "ShardedEpoch" or b["launches"] != a["launches"]
+                or not same_history or b["captures"] != 1):
+            raise AssertionError(f"{dtype}: train_main --mesh_shape 1 differs from the plain run")
+        cfg = _train_cfg(dtype, True)
+        mesh = sharding.make_mesh((1,), ("data",), "cuda")
+        try:
+            if torch.distributed.get_backend() != "nccl":
+                raise AssertionError("the world of one on the card is not NCCL")
+            times = {False: [], True: []}
+            for sharded in (False, True, True, False):
+                first = not times[sharded]
+                times[sharded].append(_mesh_epoch_ms(sharded, cfg, store, mesh, profile=first))
+                torch.cuda.empty_cache()
+        finally:
+            sharding.close_mesh(mesh)
+        res = {"losses_equal_bits": equal, "steps": len(a["losses"]),
+               "replay_launches": b["replay"], "launches": b["launches"]}
+        for sharded, name in ((False, "plain"), (True, "mesh1")):
+            r = times[sharded]
+            res[name] = {"ms": statistics.mean(x["ms"] for x in r), "runs_ms": [x["ms"] for x in r],
+                         "wall_s": runs[name]["wall_s"]}
+        for sharded, name in ((False, "plain"), (True, "mesh1")):
+            prof = times[sharded][0]
+            res[name].update({k: prof[k] for k in ("device_ms", "nccl_ms", "idle_share")
+                              if k in prof})
+
+        def prof_text(r):
+            if "device_ms" not in r:
+                return "device time not measured"
+            return (f"device {r['device_ms']:.3f} ms a step (idle share {r['idle_share']:.3f}), "
+                    f"NCCL kernels {r['nccl_ms']:.4f} ms a step")
+
+        log(f"[mesh] {dtype}: ms a graph step, plain {res['plain']['ms']:.3f} "
+            f"({', '.join(f'{x:.3f}' for x in res['plain']['runs_ms'])}; "
+            f"{prof_text(res['plain'])}), sharded over a world of one {res['mesh1']['ms']:.3f} "
+            f"({', '.join(f'{x:.3f}' for x in res['mesh1']['runs_ms'])}; "
+            f"{prof_text(res['mesh1'])}) (CUDA events around an epoch of {TRAIN_FRAMES} steps, "
+            "in turns; torch.profiler over a third epoch)")
+        results[dtype] = res
+    return results
+
+
+def gloo_rank_main(rank: int, init_file: str, out_path: str) -> None:
+    """One of two gloo ranks on the one card (phase 10 (d)): the f32
+    flagship's sharded fused epoch at a local batch of 1 from the seed's
+    weights over the 8 steps of epoch 0, then the ms a step of epoch 1."""
+    from repnerv_tpu_torch.parallel import sharding
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as the one process it is held against
+    torch.distributed.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                         world_size=2)
+    mesh = sharding.make_mesh((2,), ("data",), "cuda")
+    cfg = dataclasses.replace(_train_cfg("float32", True), data=DataConfig(batch_size=2))
+    video, t = synthetic_video(TRAIN_FRAMES, 720, 1280, seed=0)
+    store = FrameStore(frames=torch.from_numpy(video).cuda(), t=t)
+    rows = epoch_rows(store, cfg, 0)
+    # the first step's all-reduced, averaged gradients (no update)
+    probe = init_train_state(cfg, "cuda", seed=SEED)
+    dp = sharding.DataParallelUpdate(cfg, True, None, mesh)
+    local = torch.from_numpy(rows[0][sharding.local_batch(rows.shape[1], mesh)]).cuda()
+    dp.forward_backward(probe, store.gather(local),
+                        torch.from_numpy(store.t.astype(np.float32)).cuda()[local])
+    dp.reduce()
+    grads = {k: (p.grad / mesh.world_size).cpu() for k, p in probe.model.named_parameters()}
+    del probe, dp
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    fn = sharding.make_sharded_epoch_fn(cfg, GLOO_STEPS, mesh, with_msssim=True)
+    reset_counts()
+    state, aux = fn(state, store, rows, None)
+    losses = aux["loss"].cpu().clone()
+    counts = launch_counts()
+    weights = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, _ = run_fused_epoch(state, fn, store, cfg, 1)
+    end.record()
+    end.synchronize()
+    torch.save({"losses": losses, "weights": weights, "launches": counts, "grads": grads,
+                "replay": {k: launches_of(fn.replay_counts)[k] for k in PER_STEP},
+                "ms": start.elapsed_time(end) / GLOO_STEPS, "backend": torch.distributed.get_backend(),
+                "device": str(mesh.device)}, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def phase_gloo(tmp: str) -> dict:
+    """(d) two gloo ranks on the one card, f32, -b 1 each, over 8 steps from
+    the seed's weights, against one process at -b 2 and against one process
+    running the data-parallel step's arithmetic (``GLOO_*`` above)."""
+    init = os.path.join(tmp, "gloo_init")
+    outs = [os.path.join(tmp, f"gloo_rank{r}.pt") for r in range(2)]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+                               init, outs[r]], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=GLOO_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    a, b = ranks
+    cfg = dataclasses.replace(_train_cfg("float32", True), data=DataConfig(batch_size=2))
+    video, t = synthetic_video(TRAIN_FRAMES, 720, 1280, seed=0)
+    store = FrameStore(frames=torch.from_numpy(video).cuda(), t=t)
+    rows = epoch_rows(store, cfg, 0)
+    saved = _deterministic(True)
+    try:
+        one = _one_process_b2(cfg, store, rows)
+        same = _accumulated_steps(cfg, store, rows)
+    finally:
+        _deterministic(saved)
+    ranks_equal = torch.equal(a["losses"], b["losses"]) and all(
+        torch.equal(a["weights"][k], b["weights"][k]) for k in a["weights"])
+    res = {"ranks_equal": ranks_equal, "ms": [a["ms"], b["ms"]], "replay_launches": a["replay"],
+           "wall_s": wall, "launches": [a["launches"], b["launches"]],
+           "losses": a["losses"].tolist()}
+    for name, ref in (("one_process_b2", one), ("same_arithmetic", same)):
+        loss_rel = ((a["losses"] - ref["losses"]).abs() / ref["losses"].abs()).max().item()
+        w_rel, over = _rel_by_tensor(a["weights"], ref["weights"], GLOO_WEIGHT_RTOL)
+        worst = max(w_rel, key=w_rel.get)
+        res[name] = {"loss_max_rel": loss_rel, "weight_max_rel": w_rel[worst],
+                     "weight_worst": worst, "entries_over_1e-4": over,
+                     "losses_equal_bits": torch.equal(a["losses"], ref["losses"]),
+                     "weights_equal_bits": all(torch.equal(a["weights"][k], v)
+                                               for k, v in ref["weights"].items()),
+                     "losses": ref["losses"].tolist()}
+        log(f"[gloo] " + _losses_line(f"{name} per-step losses", ref["losses"]))
+    log(f"[gloo] " + _losses_line("2 ranks (-b 1 each) per-step losses", a["losses"]))
+    g_rel, g_over = _rel_by_tensor(a["grads"], one["grads"], GLOO_GRAD_RTOL)
+    g_worst = max(g_rel, key=g_rel.get)
+    res["one_process_b2"].update(grad_max_rel=g_rel[g_worst], grad_worst=g_worst)
+    o, m = res["one_process_b2"], res["same_arithmetic"]
+    ok = (ranks_equal and a["replay"] == PER_STEP and o["loss_max_rel"] <= GLOO_LOSS_RTOL
+          and o["grad_max_rel"] <= GLOO_GRAD_RTOL and m["loss_max_rel"] <= GLOO_SAME_LOSS_RTOL
+          and m["weight_max_rel"] <= GLOO_WEIGHT_RTOL)
+    log(f"[gloo] two gloo ranks on {a['device']} ({a['backend']}), f32, {GLOO_STEPS} steps, -b 1 "
+        f"each; vs one process at -b 2: losses max rel {o['loss_max_rel']:.3e} (tol "
+        f"{GLOO_LOSS_RTOL:g}), first-step gradients max |d|/max|ref| {o['grad_max_rel']:.3e} at "
+        f"{g_worst} (tol {GLOO_GRAD_RTOL:g}), final weights max |d|/max|ref| "
+        f"{o['weight_max_rel']:.3e} at {o['weight_worst']} (reported; entries over 1e-4 by "
+        f"tensor {o['entries_over_1e-4']}); vs one process running the step's own arithmetic: "
+        f"losses max rel {m['loss_max_rel']:.3e} (tol {GLOO_SAME_LOSS_RTOL:g}, equal bits "
+        f"{m['losses_equal_bits']}), weights max |d|/max|ref| {m['weight_max_rel']:.3e} (tol "
+        f"{GLOO_WEIGHT_RTOL:g}, equal bits {m['weights_equal_bits']}); the ranks equal to the "
+        f"bit {ranks_equal}; a replayed step launches {a['replay']} a rank; {a['ms']:.3f} / "
+        f"{b['ms']:.3f} ms a step (ranks 0 / 1, CUDA events, epoch 1: gloo copies the bucket "
+        f"through host memory); both processes {wall:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("two gloo ranks differ from one process at the global batch")
+    return res
+
+
+def _rel_by_tensor(got: dict, ref: dict, bound: float):
+    """max |got - ref| / max |ref| per tensor, and the entries over ``bound``
+    of it by tensor."""
+    rel, over = {}, {}
+    for k, v in ref.items():
+        if not v.numel():
+            continue
+        scale = v.abs().max().clamp_min(1e-30)
+        d = (got[k] - v).abs()
+        rel[k] = (d.max() / scale).item()
+        if rel[k] > bound:
+            over[k] = int((d > bound * scale).sum())
+    return rel, over
+
+
+def _one_process_b2(cfg: TrainConfig, store: FrameStore, rows: np.ndarray) -> dict:
+    """One process at -b 2 from the seed's weights: the first step's
+    gradients (no update), then the fused epoch over ``rows``."""
+    from repnerv_tpu_torch.train.loop import _make_forward_backward
+
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    t_all = torch.from_numpy(store.t.astype(np.float32)).cuda()
+    idx = torch.from_numpy(rows[0]).cuda()
+    _make_forward_backward(cfg, None)(state, store.gather(idx), t_all[idx])
+    grads = {k: p.grad.cpu() for k, p in state.model.named_parameters()}
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    state, aux = make_epoch_fn(cfg, GLOO_STEPS, with_msssim=True)(state, store, rows, None)
+    return {"losses": aux["loss"].cpu().clone(), "grads": grads,
+            "weights": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}
+
+
+def _accumulated_steps(cfg: TrainConfig, store: FrameStore, rows: np.ndarray) -> dict:
+    """One process doing the data-parallel step's arithmetic: per step, the
+    two frames of ``rows`` through the -b 1 forward and backward one after the
+    other (rank 0's, then rank 1's), their gradients summed and halved and the
+    losses so (the all-reduce and the division), then Adam at the step's
+    rate; eager."""
+    from repnerv_tpu_torch.train.loop import _make_forward_backward, _schedule, apply_update
+    from repnerv_tpu_torch.train.schedule import lr_table
+
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    fb = _make_forward_backward(dataclasses.replace(cfg, data=DataConfig(batch_size=1)), None)
+    lrs = lr_table(0, len(rows), **_schedule(cfg, GLOO_STEPS))
+    t_all = torch.from_numpy(store.t.astype(np.float32)).cuda()
+    params = list(state.model.parameters())
+    losses = []
+    for k, pair in enumerate(rows):
+        grads, frame_losses = [], []
+        for r in pair:
+            idx = torch.tensor([int(r)], device="cuda")
+            _, _, loss = fb(state, store.gather(idx), t_all[idx])
+            grads.append([p.grad.clone() for p in params])
+            frame_losses.append(loss)
+        for p, g0, g1 in zip(params, *grads):
+            p.grad = (g0 + g1) / 2
+        apply_update(state, None, float(lrs[k]))
+        losses.append((frame_losses[0] + frame_losses[1]) / 2)
+    state.step += len(rows)
+    return {"losses": torch.stack(losses).cpu(),
+            "weights": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}
+
+
+def phase_mesh_decode(rnvb: str) -> dict:
+    """(e) decode_main --mesh_shape 1 on phase 8's .rnvb, bf16 and int8:
+    frames of the sharded decode equal the plain decode's to the bit;
+    launches per batch; fps beside the run without the flag, in turns."""
+    from repnerv_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda", 0)
+    n_batches = SERVE_FRAMES // SERVE_BATCH
+    passes = n_batches * (1 + DECODE_REPS)
+    results = {}
+    for int8 in (False, True):
+        name = "int8" if int8 else "bfloat16"
+        extra = ["--decode_int8"] if int8 else []
+        per_batch = {"K1": 2, "K2": 2} if int8 else {"K1": 4, "K2": 0}
+        fps = {False: [], True: []}
+        counts = {}
+        for mesh1 in (False, True, True, False):
+            reset_counts()  # the main path's run starts here
+            res = decode_main.main([rnvb, "--frames", str(SERVE_FRAMES), "--batch",
+                                    str(SERVE_BATCH)] + extra + (["--mesh_shape", "1"] if mesh1
+                                                                 else []))
+            counts[mesh1] = launch_counts()  # ... and ends here
+            fps[mesh1].append(res["fps"])
+            if res["batch"] != SERVE_BATCH:
+                raise AssertionError(f"decode_main --mesh_shape 1 took batch {res['batch']}")
+        for mesh1 in (False, True):
+            got = {k: counts[mesh1][k] for k in per_batch}
+            if got != {k: v * passes for k, v in per_batch.items()}:
+                raise AssertionError(f"{name}: decode launched {got} over {passes} batches")
+        # the run without the flag again, with a world of one alive in the
+        # process (what --mesh_shape 1 adds besides its decode path)
+        group_fps = []
+        mesh = sharding.make_mesh((1,), ("data",), "cuda")
+        try:
+            for _ in range(2):
+                group_fps.append(decode_main.main([rnvb, "--frames", str(SERVE_FRAMES),
+                                                   "--batch", str(SERVE_BATCH)] + extra)["fps"])
+        finally:
+            sharding.close_mesh(mesh)
+        st, acfg, _ = read_bitstream(rnvb)
+        model = decode_main.serving_model(st, dataclasses.replace(acfg, decode_int8=int8), dev)
+        if int8:
+            calib = torch.arange(min(8, SERVE_FRAMES), dtype=torch.float32, device=dev) / SERVE_FRAMES
+            model = calibrate_int8(model, positional_encoding(calib, model.cfg.embed))
+        cfg = TrainConfig(model=model.cfg)
+        mesh = sharding.make_mesh((1,), ("data",), "cuda")
+        try:
+            plain, shard = make_decode_fn(cfg), sharding.make_sharded_decode(cfg, mesh)
+            equal = []
+            for i in range(n_batches):
+                t = torch.arange(i * SERVE_BATCH, (i + 1) * SERVE_BATCH, dtype=torch.float32,
+                                 device=dev) / SERVE_FRAMES
+                equal.append(torch.equal(plain(model, t), shard(model, t)))
+        finally:
+            sharding.close_mesh(mesh)
+        res = {"frames_equal_bits": all(equal), "launches_per_batch": per_batch,
+               "fps": statistics.mean(fps[False]), "fps_runs": fps[False],
+               "mesh1_fps": statistics.mean(fps[True]), "mesh1_fps_runs": fps[True],
+               "group_alive_fps_runs": group_fps}
+        log(f"[mesh] decode {name}: {SERVE_FRAMES} frames, batch {SERVE_BATCH}: --mesh_shape 1 "
+            f"frames vs the plain decode equal bits {equal}; launches {per_batch} a batch on "
+            f"both; fps {res['mesh1_fps']:.2f} ({', '.join(f'{x:.2f}' for x in fps[True])}) with "
+            f"the flag, {res['fps']:.2f} ({', '.join(f'{x:.2f}' for x in fps[False])}) without "
+            f"(decode_main, in turns), then without the flag but with an NCCL world of one alive "
+            f"in the process {', '.join(f'{x:.2f}' for x in group_fps)}")
+        if not all(equal):
+            raise AssertionError(f"{name}: the sharded decode's frames differ from the plain ones")
+        results[name] = res
+        del model
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_multi(tmp: str, rnvb: str) -> dict:
+    """Phase 10: the suite and multi-GPU slice."""
+    return {"suite": phase_suite(tmp), "mesh_train": phase_mesh_train(tmp),
+            "gloo": phase_gloo(tmp), "mesh_decode": phase_mesh_decode(rnvb)}
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -1722,6 +2418,8 @@ def main() -> None:
         int8_rows = phase_int8_kernel()
         compress = phase_compress(tmp)
         ooc = phase_outofcore(tmp, compress["path-a"]["launches"])
+        multi = phase_multi(tmp, os.path.join(tmp, "result", "bfloat16",
+                                              f"model_pr{PRUNE:.2f}_q{QBIT}.rnvb"))
     for name in sys.modules:
         if name.split(".")[0] in ("jax", "jaxlib", "repnerv_tpu"):
             raise AssertionError(f"the port imported {name}")
@@ -1790,7 +2488,11 @@ def main() -> None:
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
                 **yardsticks(rows),
-                **({"device_ms": sum(r["device_ms"] for r in rows)} if key == "K4" else {}),
+                **({"device_ms": sum(r["device_ms"] for r in rows),
+                    "library_note": "no single PyTorch call computes the epilogue backward "
+                                    "(squash and activation VJPs, the head's dW / db, the "
+                                    "shuffle-major relayout and the bias sums)"}
+                   if key == "K4" else {}),
                 "shapes": rows,
             })
     rows = train_rows["K5"]
@@ -1807,6 +2509,11 @@ def main() -> None:
         **yardsticks(rows),
         "device_ms": sum(r["step_device_ms"] for r in rows),
         "vjp_max_abs_err": max(r["vjp_max_abs_err"] for r in rows),
+        # library_ms is the depthwise F.conv2d of each of the 6 moments launches
+        # of a step (the loss's and the 5 MS-SSIM levels'); forward_ms the
+        # kernel's time for the same 6; the VJP launch has no library call
+        "forward_ms": sum(r["forward_step_ms"] for r in rows),
+        "library_max_abs_err": max(r["library_max_abs_err"] for r in rows),
         "shapes": rows,
         # gauss_blur_valid, the one-map entry of the same source (not on the step's path)
         "single_map": train_rows["K5_single"],
@@ -1827,6 +2534,9 @@ def main() -> None:
         "plain_ms": sum(r["plain_ms"] for r in main_rows),
         **yardsticks(main_rows),
         "shape_routes": {r["shape"]: r["route"] for r in int8_rows},
+        "library_note": "no single PyTorch call computes it: torch has no int8 x int8 -> int32 "
+                        "convolution on CUDA, and none with the per-channel dequant, activation, "
+                        "PixelShuffle and requantization",
         "shapes": int8_rows,
         "serve": compress["serve_int8"],
     })
@@ -1844,10 +2554,13 @@ def main() -> None:
             + (f" (max|d| {k['wgmma_rows_max_abs_err']:.3e} against the FMA kernel's "
                f"{k['wgmma_rows_fma_max_abs_err']:.3e})" if "wgmma_rows_fma_ms" in k else "")
             + (f", the bf16 wgmma kernel {k['bf16_kernel_ms']:.3f} ms" if "bf16_kernel_ms" in k
-               else ""))
+               else "")
+            + (f"; library ms of the {k['forward_ms']:.3f} ms of moments launches (max|d| "
+               f"{k['library_max_abs_err']:.3e})" if "forward_ms" in k else ""))
     log("[train] summary " + json.dumps(train))
     log("[compress] summary " + json.dumps(compress))
     log("[ooc] summary " + json.dumps(ooc))
+    log("[multi] summary " + json.dumps(multi))
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])
     print(json.dumps(
@@ -1856,4 +2569,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:  # one rank of phase 10 (d), started by phase_gloo
+        gloo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

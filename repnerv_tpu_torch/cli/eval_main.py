@@ -18,8 +18,9 @@ appends the JAX package's result lines to the result file it names.
 ``rd_sweep.json``.
 
 The video may be on the device, on the host or on disk (``--hbm_budget_mb``,
-``--host_budget_mb``; the finetune then streams it).  ``--mesh_shape`` is
-refused: it is a later slice (ROADMAP A8).
+``--host_budget_mb``; the finetune then streams it).  As the JAX package's
+eval CLI, it runs on one device and accepts ``--mesh_shape`` / ``--mesh_axes``
+without using them (it says so on one line).
 """
 
 from __future__ import annotations
@@ -297,13 +298,6 @@ def _device(device) -> torch.device:
     return device
 
 
-# flags of later slices -> the ROADMAP row that ports them
-def _refusal(a) -> str:
-    if a.mesh_shape:
-        return "--mesh_shape is not ported yet (ROADMAP A8: multi-GPU)"
-    return ""
-
-
 def main(argv=None):
     parser = build_parser(eval_mode=True)
     parser.add_argument(
@@ -315,9 +309,9 @@ def main(argv=None):
     parser.add_argument("--rd_quant_bits", type=int, nargs="+", default=[8, 6, 5, 4])
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     a = parser.parse_args(argv)
-    refused = _refusal(a)
-    if refused:
-        parser.error(refused)
+    if a.mesh_shape:
+        print(f"eval_main runs on one device: --mesh_shape {' '.join(map(str, a.mesh_shape))} "
+              "is accepted and not used, as by the JAX package's eval CLI")
     cfg = args_to_config(a, eval_mode=True)
     if a.rd_sweep:
         return run_rd_sweep(cfg, a.rd_prune_ratios, a.rd_quant_bits, a.device)

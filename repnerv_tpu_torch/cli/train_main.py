@@ -19,8 +19,17 @@ stdout and ``rank0.txt`` in the JAX package's line format, evaluate at
 reparam branches, the deploy-state ``model_latest_deploy.pth``, plus the
 resume file that a rerun with the same output directory picks up.
 
-Refused: ``--mesh_shape`` (a later slice, ROADMAP A8) and ``--profile``
-(the JAX profiler).
+``--mesh_shape N`` trains data-parallel over N ranks of a
+``torch.distributed`` world (``parallel/sharding.py``), started by
+``torchrun --nproc_per_node N -m repnerv_tpu_torch.cli.train_main ...`` (N = 1
+needs no torchrun: a world of one in the process).  The fused epoch runs
+when the batch divides by the data axis, else the per-step path; a video on
+the host trains per step under a mesh.  Only rank 0 writes ``rank0.txt``,
+checkpoints and ``.pth`` files; every rank evaluates the same frames.
+
+Refused: a ``model`` mesh axis (tensor parallelism, ROADMAP A11), ``--norm
+bn`` over more than one rank (ROADMAP A13) and ``--profile`` (the JAX
+profiler).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from ..config import TrainConfig
 from ..data.frames import make_frame_store
 from ..models.generator import generator_to_deploy, param_count
 from ..ops.metrics import round_tensor
+from ..parallel import sharding
 from ..train import checkpoint as ckpt
 from ..train.loop import (
     evaluate,
@@ -61,6 +71,10 @@ def log_line(outf: str, rank: int, msg: str):
         f.write(msg + "\n")
 
 
+def _silent(outf: str, rank: int, msg: str):
+    """log_line of a rank other than 0: it writes nothing."""
+
+
 def deploy_state(model, state=None) -> dict:
     """The deploy-state tensors of ``model``, or of ``model`` holding
     ``state`` (a snapshot); ``model`` itself is left as it is."""
@@ -78,12 +92,28 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
         # full-f32 convs and matmuls: TF32 would move f32 training by ~1e-3
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = None
+    if cfg.mesh_shape:
+        mesh = sharding.make_mesh(cfg.mesh_shape, cfg.mesh_axes, device)
+        device = mesh.device
+    try:
+        return _train(cfg, device, mesh)
+    finally:
+        sharding.close_mesh(mesh)
+
+
+def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
+    rank0 = mesh is None or mesh.rank == 0
+    log = log_line if rank0 else _silent
     outf = os.path.join(cfg.outf, cfg.suffix) if cfg.suffix else cfg.outf
-    if cfg.overwrite and os.path.isdir(outf):
-        shutil.rmtree(outf)
-    os.makedirs(outf, exist_ok=True)
-    with open(os.path.join(outf, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if rank0:
+        if cfg.overwrite and os.path.isdir(outf):
+            shutil.rmtree(outf)
+        os.makedirs(outf, exist_ok=True)
+        with open(os.path.join(outf, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+    if mesh is not None and mesh.world_size > 1:
+        torch.distributed.barrier()  # rank 0 has cleared the directory
 
     store = make_frame_store(cfg.data, device, split="train")
     # train and val share the pixels; only the gap differs
@@ -99,18 +129,43 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
     if os.path.exists(os.path.join(outf, ckpt.RESUME_FILE)) and not cfg.overwrite:
         state.step, start_epoch = ckpt.load_resume(outf, state.model, state.optimizer)
         print(f"resumed from epoch {start_epoch}")
+    if mesh is not None:
+        # rank 0's values, resumed or from --weight ones included, on every rank
+        state = sharding.shard_train_state(state, mesh)
 
     n_params = param_count(state.model)
-    log_line(outf, 0, f"{exp_id(cfg)}\nModel Params: {n_params / 1e6}M")
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    log(outf, 0, f"{exp_id(cfg)}\nModel Params: {n_params / 1e6}M")
+    writer = None
+    if rank0:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(outf, f"param_{n_params / 1e6}M", "tensorboard"))
-    except ImportError:  # tensorboard is optional
-        writer = None
+            writer = SummaryWriter(os.path.join(outf, f"param_{n_params / 1e6}M", "tensorboard"))
+        except ImportError:  # tensorboard is optional
+            pass
 
     with_msssim = min(store.hw) > 160
-    if cfg.fused_epoch:
+    fused = cfg.fused_epoch
+    if mesh is not None:
+        if fused and not store.resident:
+            # the streaming epoch is not sharded: a host video gathers per step
+            log(outf, 0, "WARNING: video is host-resident (over the HBM budget); "
+                "falling back from the fused whole-epoch scan to per-step "
+                "dispatch under the mesh")
+            fused = False
+        if fused and cfg.data.batch_size % mesh.data_size == 0:
+            train_step = sharding.make_sharded_epoch_fn(cfg, steps_per_epoch, mesh,
+                                                        with_msssim=with_msssim)
+        else:
+            if fused:
+                log(outf, 0, f"WARNING: batch_size {cfg.data.batch_size} is not divisible by "
+                    f"the mesh data axis ({mesh.data_size}); falling back from the fused "
+                    "whole-epoch scan to per-step dispatch")
+            fused = False
+            train_step = sharding.make_sharded_train_step(cfg, steps_per_epoch, mesh,
+                                                          with_msssim=with_msssim)
+        run = run_fused_epoch if fused else run_epoch
+    elif fused:
         # one CUDA graph replay per step (the JAX package's one lax.scan
         # dispatch per epoch); a video on the host or on disk streams chunks
         maker = make_epoch_fn if store.resident else make_streaming_epoch_fn
@@ -120,7 +175,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
         train_step = make_train_step(cfg, steps_per_epoch, with_msssim=with_msssim)
         run = run_epoch
     eval_step = make_eval_step(cfg, with_msssim=with_msssim)
-    guard = DivergenceGuard(cfg, log=lambda msg: log_line(outf, 0, msg))
+    guard = DivergenceGuard(cfg, log=lambda msg: log(outf, 0, msg))
     pending_train_best = pending_val_best = None  # (on-device state, extra)
     bests = {
         "train_best_psnr": 0.0,
@@ -133,7 +188,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
     max_steps = 10 if cfg.debug else None
     reparam = cfg.model.branch_type != "NeRV_vanilla" and not cfg.model.deploy
     macs = generator_macs(cfg.model, deploy=cfg.model.deploy)["macs"]
-    log_line(outf, 0, f"MACs: {macs / 1e9:.2f}G")
+    log(outf, 0, f"MACs: {macs / 1e9:.2f}G")
 
     for epoch in range(start_epoch, cfg.epochs):
         ep_start = datetime.now()
@@ -154,7 +209,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
             writer.add_scalar("Train/lr", m.lr, epoch + 1)
         ep_s = (datetime.now() - ep_start).total_seconds()
         avg_s = (datetime.now() - start).total_seconds() / (epoch + 1 - start_epoch)
-        log_line(
+        log(
             outf,
             0,
             f"[{datetime.now():%Y/%m/%d %H:%M:%S}] Epoch[{epoch + 1}/{cfg.epochs}] "
@@ -182,7 +237,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
                     fps = measure_decode_fps(state.model, cfg, t_val, bsz)
                 finally:
                     state.model.train()
-                log_line(outf, 0, f"FPS: {fps:.2f}")
+                log(outf, 0, f"FPS: {fps:.2f}")
             is_val_best = val_psnr[-1] > bests["val_best_psnr"]
             bests["val_best_psnr"] = max(bests["val_best_psnr"], float(val_psnr[-1]))
             bests["val_best_msssim"] = max(bests["val_best_msssim"], float(val_msssim[-1]))
@@ -191,7 +246,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
                 writer.add_scalar("Val/MSSSIM", float(val_msssim[-1]), epoch + 1)
                 writer.add_scalar("Val/best_PSNR", bests["val_best_psnr"], epoch + 1)
                 writer.add_scalar("Val/best_MSSSIM", bests["val_best_msssim"], epoch + 1)
-            log_line(
+            log(
                 outf,
                 0,
                 f"Eval at epoch {epoch + 1}: PSNR {round_tensor(val_psnr, 2)} "
@@ -200,7 +255,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
             if is_val_best:
                 pending_val_best = (snapshot(state.model), extra)
 
-        if not save_now:
+        if not save_now or not rank0:
             continue
         ckpt.save_pth(os.path.join(outf, "model_latest.pth"), state.model.state_dict(), extra)
         if pending_train_best is not None:
@@ -220,7 +275,7 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
         ckpt.save_resume(outf, state.model, state.optimizer, state.step, epoch + 1)
 
     state, restored = guard.finalize(state)
-    if restored:
+    if restored and rank0:
         # the final checkpoint boundary wrote a collapsed model_latest:
         # supersede it with the restored endpoint
         final_extra = {"epoch": cfg.epochs, **bests}
@@ -231,16 +286,25 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
                           deploy_state(state.model), final_extra)
     if reparam:
         dep = generator_to_deploy(state.model)
-        log_line(outf, 0, f"Deploy Rep-Model Params: {param_count(dep) / 1e6:.3f}M")
-    log_line(outf, 0, f"Training complete in: {datetime.now() - start}")
+        log(outf, 0, f"Deploy Rep-Model Params: {param_count(dep) / 1e6:.3f}M")
+    log(outf, 0, f"Training complete in: {datetime.now() - start}")
     return {"outf": outf, "bests": bests, "params_m": n_params / 1e6, "history": history,
             "state": state}
 
 
-# flags of later slices -> the ROADMAP row that ports them
 def _refusal(a) -> str:
-    if a.mesh_shape:
-        return "--mesh_shape is not ported yet (ROADMAP A8: multi-GPU)"
+    """What the port does not do, with the ROADMAP row that would, or what
+    the flags need: checked before anything is written."""
+    if a.mesh_shape and "model" in a.mesh_axes:
+        return (f"--mesh_axes model: tensor parallelism is not ported "
+                f"({sharding.MODEL_AXIS_ROW}); data parallelism takes --mesh_axes data")
+    n = int(np.prod(a.mesh_shape)) if a.mesh_shape else 1
+    if n > 1 and a.norm == "bn":
+        return (f"--norm bn over {n} ranks is not ported: each rank's batch statistics would "
+                f"differ from the global batch's ({sharding.NORM_BN_ROW})")
+    if n > 1 and sharding.torchrun_env() is None and not torch.distributed.is_initialized():
+        return (f"--mesh_shape {' '.join(map(str, a.mesh_shape))} needs {n} processes: "
+                f"torchrun --nproc_per_node {n} -m repnerv_tpu_torch.cli.train_main ...")
     if a.profile:
         return "--profile is the JAX profiler's and is not ported"
     return ""

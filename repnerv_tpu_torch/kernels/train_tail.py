@@ -180,10 +180,6 @@ def epilogue_backward_reference(
     return d_conv.to(cd), d_b, d_hw, d_hb
 
 
-# device -> the 64 int32 tickets K4's blocks draw from: 0 between launches
-# (the blocks that add the sums set them back), shared by the launches of one
-# stream
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
 # (device, (dtype code, B, H, W, C, s, c_final)) -> the f32 values of workspace K4 needs
 _WORKSPACES: Dict[tuple, int] = {}
 
@@ -245,8 +241,10 @@ def epilogue_backward(
     d_hw = torch.empty(c, c_final, device=dev, dtype=torch.float32) if c_final else None
     d_hb = torch.empty(c_final, device=dev, dtype=torch.float32) if c_final else None
     work = torch.empty(n_work, device=dev, dtype=torch.float32)
-    if dev not in _TICKETS:
-        _TICKETS[dev] = torch.zeros(64, device=dev, dtype=torch.int32)
+    # the 64 int32 tickets its blocks draw from, 0 at the start (the blocks
+    # that add the sums set them back): a launch's own, so that launches on
+    # two streams, or two CUDA graphs replayed side by side, share none
+    tickets = torch.zeros(64, device=dev, dtype=torch.int32)
     ptr = ctypes.c_void_p
 
     def addr(t):
@@ -265,7 +263,7 @@ def epilogue_backward(
             addr(d_hw),
             addr(d_hb),
             addr(work),
-            addr(_TICKETS[dev]),
+            addr(tickets),
             bsz, h, w, c, s,
             ACT_CODES[act],
             c_final,

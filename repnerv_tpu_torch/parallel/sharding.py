@@ -1,0 +1,442 @@
+"""Data-parallel training and decode over ``torch.distributed`` (port of
+``repnerv_tpu/parallel/sharding.py``).
+
+A JAX device on the mesh's ``"data"`` axis is a rank here: one process, one
+device (``cuda:LOCAL_RANK`` on a card, the CPU otherwise).  Every rank holds
+the whole model; the global batch of frames splits over the ranks.
+
+* **Start-up.**  ``torchrun`` sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+  ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``;
+  ``maybe_initialize_distributed`` reads them and starts the process group:
+  NCCL where every rank of a host has a card of its own, gloo on the CPU and
+  where ranks share a card (NCCL refuses two ranks on one device; gloo
+  all-reduces CUDA tensors through host memory), always with a timeout so
+  that a collective that hangs fails.  ``--mesh_shape 1`` without torchrun
+  is a world of one inside the process (an in-memory store).
+* **The step** (``make_sharded_train_step``, ``make_sharded_epoch_fn``): each
+  rank runs the forward and backward of its rows of the batch; the
+  gradients, the loss, the per-stage MSE and MS-SSIM go into one flat f32
+  bucket, which one ``all_reduce`` sums (gloo has no average) and the step
+  divides by the world size; then Adam runs on every rank on the same
+  values, so the ranks' parameters stay equal to the bit.  PSNR is
+  ``-10 log10`` of the averaged MSE, the global batch's (a mean of per-rank
+  PSNRs is not).  In the fused epoch on the card the part before the
+  all-reduce and the part after it are two CUDA graphs; the all-reduce runs
+  between their replays (a gloo collective cannot be captured; capturing
+  NCCL is ROADMAP A12).  With a world of one the division is by 1 and the
+  step equals the plain step to the bit (its all-reduce still runs).
+* **An indivisible batch** (``-b 1`` on two ranks): every rank takes the
+  whole batch, the gradients are equal, and the result is the single-rank
+  step's, as JAX's single-process replication (``local_batch``).
+* **Decode** (``make_sharded_video_decode_fn``): each rank decodes its
+  columns of every batch; the checksum's sum is the one collective, and
+  kept frames are gathered.
+
+Not ported: tensor parallelism over a ``"model"`` axis (``params_specs``,
+ROADMAP A11) and ``--norm bn`` under a data axis of more than one rank,
+whose statistics JAX takes over the global batch (ROADMAP A13); both are
+refused.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..config import TrainConfig, head_plan
+from ..train.loop import (
+    FusedEpoch,
+    Masks,
+    TrainState,
+    _make_forward_backward,
+    _schedule,
+    _StepBuffers,
+    apply_update,
+    decode_video,
+    init_train_state,
+)
+from ..train.schedule import lr_at_step
+
+TIMEOUT = timedelta(seconds=300)  # a collective that waits longer fails
+MODEL_AXIS_ROW = "ROADMAP A11"  # tensor parallelism over a "model" axis
+NORM_BN_ROW = "ROADMAP A13"  # batch statistics across ranks
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The ranks of a ``torch.distributed`` world laid out as a mesh of
+    ``shape`` over ``axis_names`` ("data", or "video" for the suite)."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    rank: int
+    world_size: int
+    device: torch.device  # this rank's
+    owns_group: bool = False  # make_mesh started the process group
+
+    def axis_size(self, name: str) -> int:
+        return dict(zip(self.axis_names, self.shape)).get(name, 1)
+
+    @property
+    def data_size(self) -> int:
+        return self.axis_size("data")
+
+
+def torchrun_env(environ=None) -> Optional[Dict[str, int]]:
+    """rank, world_size, local_rank, local_world_size from torchrun's
+    variables, or None when they are not set."""
+    environ = os.environ if environ is None else environ
+    if "RANK" not in environ or "WORLD_SIZE" not in environ:
+        return None
+    rank, world = int(environ["RANK"]), int(environ["WORLD_SIZE"])
+    return {"rank": rank, "world_size": world,
+            "local_rank": int(environ.get("LOCAL_RANK", rank)),
+            "local_world_size": int(environ.get("LOCAL_WORLD_SIZE", world))}
+
+
+def rank_device(device, local_rank: int) -> torch.device:
+    """This rank's device: ``cuda:LOCAL_RANK`` (modulo the cards there are),
+    or the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda, but no CUDA device is available")
+        return torch.device("cuda", local_rank % torch.cuda.device_count())
+    return device
+
+
+def backend_for(device: torch.device, local_world_size: int) -> str:
+    """NCCL where each rank of a host has a card of its own, else gloo."""
+    if device.type == "cuda" and local_world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def maybe_initialize_distributed(device="cuda", timeout: timedelta = TIMEOUT) -> bool:
+    """Start the process group from torchrun's variables (``env://``) when
+    they are set; True when a group exists afterwards."""
+    if dist.is_initialized():
+        return True
+    env = torchrun_env()
+    if env is None:
+        return False
+    dev = rank_device(device, env["local_rank"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = backend_for(dev, env["local_world_size"])
+    dist.init_process_group(backend, init_method="env://", rank=env["rank"],
+                            world_size=env["world_size"], timeout=timeout)
+    return True
+
+
+def make_mesh(shape: Sequence[int] = (), axes: Sequence[str] = ("data",), device="cuda",
+              timeout: timedelta = TIMEOUT) -> Mesh:
+    """The mesh over the torchrun world (started here if need be); ``()``
+    means every rank on the first axis.  ``--mesh_shape 1`` without torchrun
+    starts a world of one in this process; more ranks without torchrun, or
+    another count than torchrun started, raise."""
+    shape, axes = tuple(int(d) for d in shape), tuple(axes)
+    if "model" in axes:
+        raise ValueError(f"the 'model' mesh axis (tensor parallelism) is not ported "
+                         f"({MODEL_AXIS_ROW}); data parallelism takes --mesh_axes data")
+    if not set(axes) <= {"data", "video"}:
+        raise ValueError(f"mesh axes {axes}: the port lays ranks out over 'data' (or 'video')")
+    if shape:
+        axes = axes[: len(shape)]
+        if len(axes) != len(shape):
+            raise ValueError(f"mesh shape {shape} needs {len(shape)} axis names, got {axes}")
+    n = math.prod(shape) if shape else None
+    owns = False
+    if not maybe_initialize_distributed(device, timeout):
+        if n not in (None, 1):
+            raise ValueError(f"mesh {shape} needs {n} processes: start them with "
+                             f"torchrun --nproc_per_node {n} -m <module> ...")
+        dev = rank_device(device, 0)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend_for(dev, 1), store=dist.HashStore(), rank=0,
+                                world_size=1, timeout=timeout)
+        owns = True
+    rank, world = dist.get_rank(), dist.get_world_size()
+    env = torchrun_env()
+    dev = rank_device(device, env["local_rank"] if env else rank)
+    if not shape:
+        shape, axes = (world,), axes[:1]
+    if n is not None and n > world:
+        raise ValueError(f"mesh {shape} needs {n} devices, have {world}")
+    if n is not None and n < world:
+        raise ValueError(f"mesh {shape} uses {n} of the {world} ranks torchrun started: "
+                         f"start {n} (torchrun --nproc_per_node {n})")
+    return Mesh(shape, axes, rank, world, dev, owns)
+
+
+def close_mesh(mesh: Optional[Mesh]) -> None:
+    """End the process group when ``make_mesh`` started it, or at the end of
+    a torchrun world."""
+    if mesh is not None and dist.is_initialized() and (mesh.owns_group or torchrun_env()):
+        dist.destroy_process_group()
+
+
+def batch_spec(mesh: Mesh) -> Tuple[str, ...]:
+    """The axes a batch's leading dim splits over: ("data",) or ()."""
+    return ("data",) if "data" in mesh.axis_names else ()
+
+
+def process_local_slice(global_n: int, mesh: Mesh) -> slice:
+    """This rank's contiguous rows of a leading global batch dim: rank ``r``
+    of ``W`` owns ``[r*n/W, (r+1)*n/W)``.  Every rank draws the same
+    permutation and keeps only this slice."""
+    per = global_n // mesh.world_size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def local_batch(global_n: int, mesh: Mesh) -> slice:
+    """This rank's rows of a global batch of ``global_n``: its slice where
+    the batch divides by the data axis, else the whole batch (every rank then
+    computes the same gradients; JAX's single-process replication)."""
+    if not batch_spec(mesh) or global_n % mesh.data_size:
+        return slice(0, global_n)
+    return process_local_slice(global_n, mesh)
+
+
+def shard_batch(frames: torch.Tensor, t: torch.Tensor, mesh: Mesh):
+    """This rank's rows of the global batch (frames [B, H, W, 3], t [B])."""
+    sl = local_batch(frames.shape[0], mesh)
+    return frames[sl], t[sl]
+
+
+def replicate(tensors: Iterable[torch.Tensor], mesh: Mesh) -> list:
+    """Broadcast each tensor from rank 0, in place."""
+    tensors = list(tensors)
+    if mesh.world_size > 1:
+        for t in tensors:
+            dist.broadcast(t, src=0)
+    return tensors
+
+
+def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """Lay out an existing state (resumed, or from ``--weight``) over the
+    mesh, keeping its values: rank 0's parameters, buffers, Adam moments and
+    step count go to every rank."""
+    opt = state.optimizer
+    tensors = [v for v in state.model.state_dict().values()]
+    for p in state.model.parameters():
+        tensors.extend(v for _, v in sorted(opt.state.get(p, {}).items()) if torch.is_tensor(v))
+    replicate([t.data for t in tensors], mesh)
+    step = torch.tensor([state.step], dtype=torch.long, device=mesh.device)
+    replicate([step], mesh)
+    state.step = int(step.item())
+    return state
+
+
+def make_sharded_train_state(cfg: TrainConfig, mesh: Mesh) -> TrainState:
+    """A fresh state on this rank's device, equal on every rank."""
+    return shard_train_state(init_train_state(cfg, mesh.device), mesh)
+
+
+def _check_cfg(cfg: TrainConfig, mesh: Mesh) -> None:
+    if cfg.model.norm == "bn" and mesh.data_size > 1:
+        raise ValueError(f"--norm bn under a data axis of {mesh.data_size} ranks is not ported: "
+                         f"each rank's batch statistics would differ from the global batch's "
+                         f"({NORM_BN_ROW})")
+
+
+class DataParallelUpdate:
+    """The data-parallel step in three parts: ``forward_backward`` (this
+    rank's rows; gradients and metrics into one flat bucket), ``reduce`` (one
+    all-reduce of the bucket) and ``apply`` (the average, the prune masks and
+    Adam; returns the step's metrics).  The bucket is [gradients of every
+    parameter in ``parameters()`` order, loss, MSE per stage, MS-SSIM per
+    stage]; after ``forward_backward`` each ``.grad`` is a view of it."""
+
+    def __init__(self, cfg: TrainConfig, with_msssim: bool, param_transform, mesh: Mesh):
+        _check_cfg(cfg, mesh)
+        self.mesh = mesh
+        self.with_msssim = with_msssim
+        self.n_stage = sum(head_plan(cfg.model))
+        self.forward_backward_fn = _make_forward_backward(cfg, param_transform)
+        self.bucket: Optional[torch.Tensor] = None
+        self._views: list = []
+        self._key = None
+        self.n_grad = 0
+
+    def _bucket(self, params: list) -> torch.Tensor:
+        key = tuple((p.data_ptr(), p.shape, p.dtype) for p in params)
+        if key != self._key:
+            if any(p.dtype != torch.float32 for p in params):
+                raise TypeError("the gradient bucket holds f32 parameters only")
+            self.n_grad = sum(p.numel() for p in params)
+            n = self.n_grad + 1 + self.n_stage * (2 if self.with_msssim else 1)
+            self.bucket = torch.zeros(n, dtype=torch.float32, device=params[0].device)
+            chunks = self.bucket[: self.n_grad].split([p.numel() for p in params])
+            self._views = [c.view_as(p) for c, p in zip(chunks, params)]
+            self._key = key
+        return self.bucket
+
+    def forward_backward(self, state: TrainState, frames: torch.Tensor, t: torch.Tensor) -> None:
+        outs, targets, loss = self.forward_backward_fn(state, frames, t)
+        params = list(state.model.parameters())
+        bucket = self._bucket(params)
+        with torch.no_grad():
+            parts = []
+            for p in params:
+                if p.grad is None:
+                    raise RuntimeError("data-parallel step: a parameter got no gradient")
+                parts.append(p.grad.reshape(-1))
+            parts.append(loss.reshape(1))
+            parts.append(torch.stack([torch.mean((o.float() - tg.float()) ** 2)
+                                      for o, tg in zip(outs, targets)]))
+            if self.with_msssim:
+                from ..ops.metrics import msssim_fn
+
+                parts.append(msssim_fn(outs, targets)[0])
+            torch.cat(parts, out=bucket)
+            for p, v in zip(params, self._views):
+                p.grad = v
+
+    def reduce(self) -> None:
+        dist.all_reduce(self.bucket, op=dist.ReduceOp.SUM)
+
+    def apply(self, state: TrainState, masks: Masks, lr) -> dict:
+        """The average over ranks (gloo has no AVG: SUM, then / world
+        size), the update, and the step's metrics as device tensors."""
+        n, s = self.n_grad, self.n_stage
+        with torch.no_grad():
+            self.bucket.div_(self.mesh.world_size)
+        apply_update(state, masks, lr)
+        with torch.no_grad():
+            # copies: the next step overwrites the bucket
+            aux = {"loss": self.bucket[n].clone(),
+                   "psnr": -10.0 * torch.log10(self.bucket[n + 1 : n + 1 + s])}
+            if self.with_msssim:
+                aux["msssim"] = self.bucket[n + 1 + s : n + 1 + 2 * s].clone()
+        return aux
+
+
+def make_sharded_train_step(cfg: TrainConfig, steps_per_epoch: int, mesh: Mesh, *,
+                            with_msssim: bool = False, param_transform=None):
+    """The data-parallel train step: ``step(state, frames, t, masks)`` on this
+    rank's rows of the batch (``run_epoch`` hands it them: it reads the
+    step's ``mesh``) -> (state, aux), aux as ``build_train_step_fn``'s, the
+    metrics those of the global batch."""
+    schedule = _schedule(cfg, steps_per_epoch)
+    dp = DataParallelUpdate(cfg, with_msssim, param_transform, mesh)
+
+    def step_fn(state: TrainState, frames, t, masks: Masks = None):
+        lr = float(lr_at_step(state.step, **schedule))
+        dp.forward_backward(state, frames, t)
+        dp.reduce()
+        aux = dp.apply(state, masks, lr)
+        aux["lr"] = lr
+        state.step += 1
+        return state, aux
+
+    step_fn.mesh = mesh
+    return step_fn
+
+
+class ShardedEpoch(FusedEpoch):
+    """The fused epoch over a mesh (``make_sharded_epoch_fn``): the same
+    call, buffers and graph key as ``FusedEpoch``; it keeps this rank's
+    columns of the global batch matrix.  A step is the part before the
+    all-reduce, the all-reduce, and the part after it; on the card the two
+    parts are two CUDA graphs, replayed around the all-reduce."""
+
+    def __init__(self, cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool,
+                 param_transform, mesh: Mesh):
+        super().__init__(cfg, steps_per_epoch, with_msssim, param_transform)
+        self.mesh = mesh
+        self.dp = DataParallelUpdate(cfg, with_msssim, param_transform, mesh)
+
+    def _before(self, state: TrainState, store, buf: _StepBuffers, masks: Masks) -> None:
+        rows = buf.perm.index_select(0, buf.k).reshape(-1)
+        self.dp.forward_backward(state, self._frames(store, buf, rows),
+                                 buf.t_all.index_select(0, rows))
+
+    def _after(self, state: TrainState, buf: _StepBuffers, masks: Masks) -> None:
+        k = buf.k
+        aux = self.dp.apply(state, masks, buf.lr.index_select(0, k).reshape(()))
+        with torch.no_grad():
+            buf.loss.index_copy_(0, k, aux["loss"].reshape(1))
+            buf.psnr.index_copy_(0, k, aux["psnr"].reshape(1, -1))
+            if buf.msssim is not None:
+                buf.msssim.index_copy_(0, k, aux["msssim"].reshape(1, -1))
+        k.add_(1)
+
+    def step(self, state: TrainState, store, buf: _StepBuffers, masks: Masks) -> None:
+        self._before(state, store, buf, masks)
+        self.dp.reduce()
+        self._after(state, buf, masks)
+
+    def _held(self, store) -> list:
+        return super()._held(store) + [self.dp.bucket]
+
+    def _capture_graphs(self, state: TrainState, store, buf: _StepBuffers, masks: Masks, stream):
+        # thread-local: the process group's own threads (NCCL's watchdog
+        # queries its events) may call CUDA while this thread captures
+        before, after = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(before, stream=stream, capture_error_mode="thread_local"):
+            self._before(state, store, buf, masks)
+        with torch.cuda.graph(after, stream=stream, capture_error_mode="thread_local"):
+            self._after(state, buf, masks)
+        return before, after
+
+    def _replay(self) -> None:
+        before, after = self.graph
+        before.replay()
+        self.dp.reduce()
+        after.replay()
+
+    def __call__(self, state: TrainState, store, perm, masks: Masks):
+        return super().__call__(state, store, perm[:, local_batch(perm.shape[1], self.mesh)],
+                                masks)
+
+
+def make_sharded_epoch_fn(cfg: TrainConfig, steps_per_epoch: int, mesh: Mesh, *,
+                          with_msssim: bool = False, param_transform=None) -> ShardedEpoch:
+    """The whole-epoch train function over a mesh: ``run_fused_epoch`` drives
+    it with the global batch matrix of the epoch, the same on every rank."""
+    return ShardedEpoch(cfg, steps_per_epoch, with_msssim, param_transform, mesh)
+
+
+def make_sharded_video_decode_fn(cfg: TrainConfig, mesh: Mesh, *, keep_frames: bool = False):
+    """``run(model, t_batches [n_batches, B])``: each rank decodes its
+    columns of every batch (B must divide by the data axis).  Returns the
+    per-batch checksums [n_batches], summed over the ranks (the one
+    collective), or with ``keep_frames`` the frames [n_batches, B, H, W, 3]
+    gathered from every rank."""
+    n_dev = mesh.data_size
+
+    def run(model, t_batches: torch.Tensor) -> torch.Tensor:
+        n, b = t_batches.shape
+        if b % n_dev:
+            raise ValueError(f"decode batch {b} does not divide by the data axis ({n_dev})")
+        local = t_batches[:, process_local_slice(b, mesh)]
+        ys = decode_video(model, cfg, local, keep_frames=keep_frames)
+        if not keep_frames:
+            dist.all_reduce(ys, op=dist.ReduceOp.SUM)
+            return ys
+        if mesh.world_size == 1:
+            return ys
+        parts = [torch.empty_like(ys) for _ in range(mesh.world_size)]
+        dist.all_gather(parts, ys.contiguous())
+        return torch.cat(parts, dim=1)
+
+    return run
+
+
+def make_sharded_decode(cfg: TrainConfig, mesh: Mesh):
+    """``decode(model, t [B]) -> frames [B, H, W, 3]``, each rank rendering
+    its frames of the batch, gathered."""
+    run = make_sharded_video_decode_fn(cfg, mesh, keep_frames=True)
+
+    def decode(model, t: torch.Tensor) -> torch.Tensor:
+        return run(model, t.reshape(1, -1))[0]
+
+    return decode

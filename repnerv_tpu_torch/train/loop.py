@@ -22,7 +22,10 @@ fetch of the stacked metrics at the end of the epoch:
   For a video on the host or on disk it drives ``make_streaming_epoch_fn``:
   the same step reads its frames from a ring of device chunk buffers, and
   the next chunk is copied in on a side stream while the graph replays the
-  steps of the current one.
+  steps of the current one.  ``parallel/sharding.py`` captures the
+  data-parallel step as two graphs around an all-reduce (the
+  ``_capture_graphs`` / ``_replay`` hooks), and ``parallel/suite.py`` runs one
+  ``FusedEpoch`` per video, each on its own stream.
 
 Decoding runs one batch per call; throughput is timed with CUDA events on
 the card, and a measurement without a card fails rather than timing the CPU.
@@ -114,14 +117,13 @@ def _schedule(cfg: TrainConfig, steps_per_epoch: int) -> dict:
     )
 
 
-def _make_update(cfg: TrainConfig, with_msssim: bool, param_transform):
-    """update(state, frames, t, masks, lr) -> aux: one step's forward,
-    backward and Adam update at ``lr`` (a float, or a 0-dim f32 tensor on the
-    device), in place; aux holds the device tensors "loss", "psnr" [n_stage]
-    (and "msssim")."""
+def _make_forward_backward(cfg: TrainConfig, param_transform):
+    """fb(state, frames, t) -> (outputs, targets, loss): the forward, the
+    loss and its backward into fresh ``.grad`` tensors; outputs and loss
+    come back detached."""
     mcfg = cfg.model
 
-    def update(state: TrainState, frames, t, masks: Masks, lr) -> dict:
+    def forward_backward(state: TrainState, frames, t):
         model, opt = state.model, state.optimizer
         embed = positional_encoding(t, mcfg.embed)
         if param_transform is None:
@@ -133,15 +135,35 @@ def _make_update(cfg: TrainConfig, with_msssim: bool, param_transform):
         loss = multi_scale_loss(outs, targets, cfg.loss_type, cfg.lw)
         opt.zero_grad(set_to_none=True)
         loss.backward()
-        params = dict(model.named_parameters())
+        return [o.detach() for o in outs], targets, loss.detach()
+
+    return forward_backward
+
+
+@torch.no_grad()
+def apply_update(state: TrainState, masks: Masks, lr) -> None:
+    """Adam at ``lr`` (a float, or a 0-dim f32 tensor on the device) on the
+    ``.grad`` tensors, with the prune masks on the gradients before and on
+    the parameters after, in place."""
+    params = dict(state.model.named_parameters())
+    _apply_masks({k: p.grad for k, p in params.items()}, masks)
+    for group in state.optimizer.param_groups:
+        group["lr"].fill_(lr)  # a 0-dim tensor is copied on the device
+    state.optimizer.step()
+    _apply_masks(params, masks)
+
+
+def _make_update(cfg: TrainConfig, with_msssim: bool, param_transform):
+    """update(state, frames, t, masks, lr) -> aux: one step's forward,
+    backward and Adam update at ``lr``, in place; aux holds the device
+    tensors "loss", "psnr" [n_stage] (and "msssim")."""
+    forward_backward = _make_forward_backward(cfg, param_transform)
+
+    def update(state: TrainState, frames, t, masks: Masks, lr) -> dict:
+        outs, targets, loss = forward_backward(state, frames, t)
+        apply_update(state, masks, lr)
         with torch.no_grad():
-            _apply_masks({k: p.grad for k, p in params.items()}, masks)
-            for group in opt.param_groups:
-                group["lr"].fill_(lr)  # a 0-dim tensor is copied on the device
-            opt.step()
-            _apply_masks(params, masks)
-            outs = [o.detach() for o in outs]
-            aux = {"loss": loss.detach(), "psnr": psnr_fn(outs, targets).mean(dim=0)}
+            aux = {"loss": loss, "psnr": psnr_fn(outs, targets).mean(dim=0)}
             if with_msssim:
                 aux["msssim"] = msssim_fn(outs, targets).mean(dim=0)
         return aux
@@ -210,9 +232,17 @@ def run_epoch(
 ) -> Tuple[TrainState, EpochMetrics]:
     """One epoch of eager steps, with one device-to-host fetch of the stacked
     metrics at the end.  A resident video is gathered on the device; a host
-    or disk video one batch at a time on the host (``FrameStore.gather``)."""
+    or disk video one batch at a time on the host (``FrameStore.gather``).
+    A data-parallel step (``parallel.sharding.make_sharded_train_step``, which
+    carries its ``mesh``) gets this rank's rows of each batch: every rank
+    draws the same global permutation and keeps its slice of it."""
     dev = store.device
     rows_np = epoch_rows(store, cfg, epoch, max_steps)
+    mesh = getattr(step_fn, "mesh", None)
+    if mesh is not None:
+        from ..parallel.sharding import local_batch
+
+        rows_np = rows_np[:, local_batch(rows_np.shape[1], mesh)]
     perm = torch.from_numpy(rows_np).to(dev)
     t_all = torch.from_numpy(np.asarray(store.t, np.float32)).to(dev)
     losses, psnrs, msssims = [], [], []
@@ -268,17 +298,19 @@ class FusedEpoch:
         self.schedule = _schedule(cfg, steps_per_epoch)
         self.update = _make_update(cfg, with_msssim, param_transform)
         self.buffers: Optional[_StepBuffers] = None
-        self.graph = None  # torch.cuda.CUDAGraph of the step
+        self.graph = None  # torch.cuda.CUDAGraph of the step (_capture_graphs)
         self.graph_key = None  # what the graph was captured on (_graph_key)
         self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
+        self.captures = 0  # captures since construction
 
     def _check_store(self, store: FrameStore) -> None:
         if not store.resident:
             raise ValueError("make_epoch_fn runs over a device-resident video; a host or disk "
                              "video takes make_streaming_epoch_fn")
 
-    def _buffers(self, store: FrameStore, b: int) -> _StepBuffers:
-        rows = store.num_samples // b
+    def _buffers(self, store: FrameStore, b: int, n_steps: int) -> _StepBuffers:
+        # a suite's shorter video runs the longest video's steps (parallel/suite.py)
+        rows = max(store.num_samples // b, n_steps)
         dev = store.device
         buf = self.buffers
         if buf is None or buf.perm.shape != (rows, b) or buf.perm.device != dev:
@@ -330,9 +362,25 @@ class FusedEpoch:
         tensors.extend(masks[k] for k in names)
         return (id(state.model), id(opt), names, tuple(t.data_ptr() for t in tensors))
 
+    def _capture_graphs(self, state: TrainState, store: FrameStore, buf: _StepBuffers,
+                        masks: Masks, stream):
+        """Capture the step on ``stream`` (the caller holds off cyclic
+        collection); returns what ``_replay`` replays."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            self.step(state, store, buf, masks)
+        return graph
+
+    def _replay(self) -> None:
+        self.graph.replay()
+
     def _capture(self, state: TrainState, store: FrameStore, buf: _StepBuffers,
                  masks: Masks) -> None:
-        """Run one step eagerly on a side stream, then capture the step."""
+        """Run one step eagerly on a side stream, then capture the step on
+        that stream.  Each capture has a stream of its own, not torch's one
+        default capture stream: cuBLAS keeps one workspace per stream, which
+        a graph then holds, and two graphs captured on one stream and
+        replayed side by side (the parallel suite) would share it."""
         dev = store.device
         self.graph = self.graph_key = None  # let the old graph's memory go first
         side = torch.cuda.Stream(dev)
@@ -340,7 +388,6 @@ class FusedEpoch:
         with torch.cuda.stream(side):
             self.step(state, store, buf, masks)
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
         before = launches.snapshot()
         # no cyclic collection inside the capture: freeing pinned memory that
         # a copy used makes the host allocator record and query CUDA events,
@@ -348,8 +395,7 @@ class FusedEpoch:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
-                self.step(state, store, buf, masks)
+            graph = self._capture_graphs(state, store, buf, masks, side)
         finally:
             if collecting:
                 gc.enable()
@@ -357,13 +403,14 @@ class FusedEpoch:
         self.replay_counts = launches.since(before)
         launches.add(self.replay_counts, -1)
         self.graph, self.graph_key = graph, self._graph_key(state, store, masks)
+        self.captures += 1
 
     def _start(self, state: TrainState, store: FrameStore, perm: np.ndarray):
         """The epoch's buffers with its rows, t, learning rates and k = 0;
         returns (buffers, the host learning rates)."""
         self._check_store(store)
         n_steps, b = perm.shape
-        buf = self._buffers(store, b)
+        buf = self._buffers(store, b, n_steps)
         lrs = lr_table(state.step, n_steps, **self.schedule)
         buf.perm[:n_steps].copy_(torch.from_numpy(np.asarray(perm, np.int64)))
         buf.t_all.copy_(torch.from_numpy(np.asarray(store.t, np.float32)))
@@ -383,7 +430,7 @@ class FusedEpoch:
             self._capture(state, store, buf, masks)  # a step runs in here
             n -= 1
         for _ in range(n):
-            self.graph.replay()
+            self._replay()
             launches.add(self.replay_counts)
 
     def _finish(self, state: TrainState, buf: _StepBuffers, n_steps: int, lrs: np.ndarray):
@@ -667,25 +714,34 @@ def decode_time_batches(t_all, bsz: int) -> np.ndarray:
 
 
 def measure_decode_fps(
-    model: nn.Module, cfg: TrainConfig, t_all, bsz: int, reps: int = DECODE_REPS
+    model: nn.Module, cfg: TrainConfig, t_all, bsz: int, reps: int = DECODE_REPS, mesh=None
 ) -> float:
     """Whole-video decode throughput on the card: one warm-up decode, then
     ``reps`` timed decodes of the same frames, each between two CUDA events;
     frames per second of the fastest.  Decodes ``(1 + reps) * n_batches``
-    batches in all."""
+    batches in all.  With ``mesh`` each rank decodes its columns of every
+    batch (``parallel.sharding.make_sharded_video_decode_fn``); ``bsz`` is
+    the global batch and must divide by the data axis."""
     device = next(model.parameters()).device
     if device.type != "cuda":
         raise RuntimeError(f"decode fps is measured on a CUDA device, not {device}")
+    if mesh is None:
+        def decode_all(m, t):
+            return decode_video(m, cfg, t, keep_frames=False)
+    else:
+        from ..parallel.sharding import make_sharded_video_decode_fn
+
+        decode_all = make_sharded_video_decode_fn(cfg, mesh, keep_frames=False)
     t_np = decode_time_batches(t_all, bsz)
     n_batches, bsz = t_np.shape
     t_mat = torch.from_numpy(t_np).to(device)
-    decode_video(model, cfg, t_mat, keep_frames=False)  # warm-up: build, allocator
+    decode_all(model, t_mat)  # warm-up: build, allocator
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        decode_video(model, cfg, t_mat, keep_frames=False)
+        decode_all(model, t_mat)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)

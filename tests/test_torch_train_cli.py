@@ -77,7 +77,7 @@ def test_train_cli_logs_checkpoints_deploys_and_resumes(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "extra,row",
     [
-        (["--mesh_shape", "2"], "A8"),
+        (["--mesh_shape", "2"], "torchrun --nproc_per_node 2"),
         (["--profile"], "profiler"),
     ],
 )
