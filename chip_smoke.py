@@ -6,9 +6,9 @@ artifact through ``repnerv_tpu_torch.cli.decode_main``, and train the
 flagship through ``repnerv_tpu_torch.cli.train_main``, compress that
 training run through ``repnerv_tpu_torch.cli.eval_main`` and serve its
 ``.rnvb`` in int8, fit a suite of videos through
-``repnerv_tpu_torch.cli.suite_main`` and train and decode over
-``torch.distributed``, checking that every main path went through the
-kernels and matches its plain path.
+``repnerv_tpu_torch.cli.suite_main``, train and decode over
+``torch.distributed`` and train over a tensor-parallel model axis, checking
+that every main path went through the kernels and matches its plain path.
 
     python3 chip_smoke.py
 
@@ -84,6 +84,20 @@ Phases (each prints its own lines; any failure exits non-zero):
                steps: losses, weights, the ranks' weights bitwise, ms a step;
                (e) decode_main --mesh_shape 1 on phase 8's .rnvb, bf16 and
                int8: frames to the bit, launches a batch, fps in turns
+ 11. tensor parallel — (e) K3 / K4 vs plain at one model rank's shard shapes
+               (Cout 384 -> 192, c = 48, -b 1, f32 and bf16): values, times,
+               bounds, F.conv2d at the shard's Cout (run after phase 5,
+               where torch.profiler sees K4); gloo ranks on the one
+               card (this script with --tp-rank) from the seed's weights:
+               (a) a (1, 2) data x model mesh, -b 1, bf16 and f32, 8 steps,
+               and (d) --norm bn over (2,) data ranks, f32, -b 2, 4 steps, in
+               one world of 2; (b) a (2, 2) mesh, f32, -b 2, 4 steps, in a
+               world of 4; each against one process at the global batch:
+               per-step losses, first-step gradients (gathered), final
+               weights (reported), launches a step by route, the bytes the
+               collectives move, ms a step, device ms, idle share; (c)
+               train_main over a (1, 1) data x model mesh (an NCCL world of
+               one) vs without: per-step losses to the bit
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
 heavy part, with a ``library_note`` saying why; K5's is a depthwise
@@ -307,23 +321,57 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, fragment: str, reps: int = 5) -> float:
-    """The card's own time for the kernels of one ``fn()`` whose name holds
-    ``fragment``, from a torch.profiler trace of ``reps`` calls.  ``cuda_ms``
-    of a call that is shorter than the host takes to launch it (K4 and K5 at
-    the small stages: tens of microseconds) reads the host instead."""
+# (launches, kernels seen) of every trace of profile_kernels
+TRACES: list = []
+
+
+def empty_traces() -> int:
+    """The traces that held no kernel at all though the wrappers launched."""
+    return sum(1 for launched, seen in TRACES if launched and not seen)
+
+
+def profile_kernels(fn, reps: int = 5, traces: int = 3):
+    """(the launches the wrappers counted, {kernel name: device us}) over a
+    torch.profiler trace of ``reps`` calls of ``fn()``, after one call
+    outside it.  A trace that holds no kernel at all while the wrappers
+    launched is the profiler's gap: the calls are traced again, ``traces``
+    times at most.  Every trace goes into ``TRACES``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if fragment in e.key.lower())
+    for _ in range(traces):
+        before = sum(launch_counts().values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(launch_counts().values()) - before
+        seen = {e.key: getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()}
+        seen = {k: us for k, us in seen.items() if us}
+        TRACES.append((launched, len(seen)))
+        if seen or not launched:
+            break
+        log(f"[profiler] a trace of {reps} calls that launched {launched} held no kernel at all "
+            f"(empty trace {empty_traces()} of {len(TRACES)} in the run): tracing again")
+    return launched, seen
+
+
+def kernel_device_ms(fn, fragment: str, reps: int = 5) -> float:
+    """The card's own time for the kernels of one ``fn()`` whose name holds
+    ``fragment``, from a torch.profiler trace of ``reps`` calls.  ``cuda_ms``
+    of a call that is shorter than the host takes to launch it (K4 and K5 at
+    the small stages: tens of microseconds) reads the host instead.  It fails
+    where the wrappers launched less than once a call (the path) or the
+    profiler saw no such kernel (the profiler), and says which."""
+    launched, seen = profile_kernels(fn, reps)
+    if launched < reps:
+        raise AssertionError(f"{reps} calls launched {launched} kernels of K1-K5")
+    us = sum(v for k, v in seen.items() if fragment in k.lower())
     if not us:
-        raise RuntimeError(f"the profiler saw no kernel named *{fragment}*")
+        raise RuntimeError(f"the profiler saw no kernel named *{fragment}* in {reps} calls that "
+                           f"launched {launched}; it saw {len(seen)} kernels: {sorted(seen)[:8]} "
+                           f"({empty_traces()} empty traces of {len(TRACES)} so far)")
     return us / 1e3 / reps
 
 
@@ -563,17 +611,19 @@ def _bf16_ulp(out, ref):
     return bool(((out.float() - ref.float()).abs() <= BF16_RTOL * ref.float().abs() + 1e-4).all())
 
 
-def phase_train_kernels() -> dict:
-    g = torch.Generator().manual_seed(SEED)
+def stage_train_rows(shapes: list, g: torch.Generator, tag: str) -> dict:
+    """K3 and K4 against their plain versions at ``shapes`` ((name, H, W,
+    Cin, C, stride, head) of -b 1 stages), f32 and bf16: values, times,
+    bounds and the library's conv; the rows of each, logged under ``tag``."""
     dev = torch.device("cuda", 0)
 
     def uniform(shape, bound):
         return ((torch.rand(shape, generator=g) * 2 - 1) * bound).to(dev)
 
-    rows = {"K3": [], "K4": [], "K5": []}
+    rows = {"K3": [], "K4": []}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for name, h, w, cin, c, s, head in TRAIN_SHAPES:
+        for name, h, w, cin, c, s, head in shapes:
             cout = c * s * s
             x = torch.randn(1, h, w, cin, generator=g).to(dev).to(dtype).contiguous()
             wt = uniform((3, 3, cin, cout), (9 * cin) ** -0.5)
@@ -599,7 +649,7 @@ def phase_train_kernels() -> dict:
             row = {"shape": name, "dtype": dname, "route": p.route, "max_abs_err": err,
                    "tol": tol, "ms": ms, "plain_ms": plain_ms}
             row.update(stage_yardsticks(x, p, out, z, refs=(ref_out, ref_z)))
-            log(f"[train-kernels] K3 {dname:8s} {name:12s} x[1,{h},{w},{cin}] -> out "
+            log(f"[{tag}] K3 {dname:8s} {name:12s} x[1,{h},{w},{cin}] -> out "
                 f"{list(out.shape)} z {list(z.shape)}: max|d|={err:.3e} (tol {tol}) {p.route} "
                 f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {yardstick_text(row)} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -636,7 +686,7 @@ def phase_train_kernels() -> dict:
             # per head output (d_a and dW products), on the FMA pipes
             k4_bound = roofline(z.numel() * (10.0 + 4 * p.c_final),
                                 nbytes(z, ct, out if head else None, p.head_w, *got), "f32")
-            log(f"[train-kernels] K4 {dname:8s} {name:12s} z {list(z.shape)} -> d_conv "
+            log(f"[{tag}] K4 {dname:8s} {name:12s} z {list(z.shape)} -> d_conv "
                 f"{list(got[0].shape)}: d_conv max|d|={err:.3e}, sums max|d|/max|ref|="
                 f"{part_rel:.3e}, two launches {'equal' if same_bits else 'DIFFER'} (tol {tol}) "
                 f"kernel {ms:.3f} ms a call, {device_ms:.3f} ms on the card, "
@@ -650,6 +700,13 @@ def phase_train_kernels() -> dict:
                                "device_ms": device_ms, "plain_ms": plain_ms, **k4_bound})
             del x, out, z, ref_out, ref_z, ct, got, again, ref, args
             torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_kernels() -> dict:
+    g = torch.Generator().manual_seed(SEED)
+    dev = torch.device("cuda", 0)
+    rows = {**stage_train_rows(TRAIN_SHAPES, g, "train-kernels"), "K5": []}
     win = sb.window_tuple(11, 1.5)
 
     def blur_ops(n, h, w_in, w_out, h_out, maps):
@@ -2407,6 +2464,348 @@ def phase_multi(tmp: str, rnvb: str) -> dict:
             "gloo": phase_gloo(tmp), "mesh_decode": phase_mesh_decode(rnvb)}
 
 
+# phase 11, tensor parallelism over a "model" axis and --norm bn over data
+# ranks, on the paper flagship (720p ERB, Fusion6, MS-SSIM every step) from
+# the seed's weights.  The one card holds every rank: gloo processes (this
+# script with --tp-rank) on cuda:0, as phase 10 (d).  Per rank and step, the
+# model axis of 2 runs 4 K3 (blocks 1-4 on 48-channel shards: bf16 3 wgmma +
+# 1 wmma, f32 3 wgmma_tf32x3 + 1 fma), 4 K4 (block 4 without its head: the
+# head runs row parallel outside the kernel) and 7 K5 (loss and metrics on
+# the whole output, on every rank).  Against one process's eager step at the
+# global batch from the same weights: the phase 6 bounds (STEP_TOL) on the
+# per-step losses and the first step's gradients (all-reduced over the data
+# group, gathered over the model group, / the data axis); the final weights
+# are reported, not bounded (PERF.md: Adam amplifies summation noise).
+TP_JOBS = [  # (name, mesh shape, axes, compute dtype, global batch, norm, steps)
+    ("tp_bf16", (1, 2), ("data", "model"), "bfloat16", 1, "none", 8),
+    ("tp_f32", (1, 2), ("data", "model"), "float32", 1, "none", 8),
+    ("bn_data", (2,), ("data",), "float32", 2, "bn", 4),
+]
+TP_JOBS_4 = [("tp_2x2", (2, 2), ("data", "model"), "float32", 2, "none", 4)]
+TP_TIME_STEPS = 4  # steps of a second epoch under CUDA events, then 2 under torch.profiler
+TP_TIMEOUT_S = 900
+BN_PER_STEP = {"K3": 0, "K4": 0, "K5": 7}  # the K3 gate needs norm none
+TP_ROUTES = {"bfloat16": {"wgmma": 3, "wmma": 1}, "float32": {"wgmma_tf32x3": 3, "fma": 1}}
+# one model rank's stages at M = 2 (Cout 384 -> 192: c = 48), -b 1
+TP_SHAPES = [
+    ("block1/2", 45, 80, 26, 48, 2, False),
+    ("block2/2", 90, 160, 96, 48, 2, False),
+    ("block3/2", 180, 320, 96, 48, 2, False),
+    ("block4/2", 360, 640, 96, 48, 2, False),
+]
+
+
+def _tp_cfg(dtype: str, batch: int, norm: str) -> TrainConfig:
+    cfg = _train_cfg(dtype, True)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, norm=norm),
+                               data=DataConfig(batch_size=batch))
+
+
+def _tp_store() -> FrameStore:
+    video, t = synthetic_video(TRAIN_FRAMES, 720, 1280, seed=0)
+    return FrameStore(frames=torch.from_numpy(video).cuda(), t=t)
+
+
+def tp_rank_main(rank: int, world: int, init_file: str, out_path: str, names: str) -> None:
+    """One gloo rank of phase 11 on cuda:0: for each job named, the sharded
+    step's first-step gradients (no update), then ``steps`` steps of
+    ``make_sharded_epoch_fn`` from the seed's weights (counts, collective
+    bytes, losses, the gathered weights), then ms a step of a second epoch
+    (CUDA events) and the device ms of two more steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repnerv_tpu_torch.parallel import collectives, sharding
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as the one process it is held against
+    torch.distributed.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                         world_size=world)
+    store = _tp_store()
+    t_all = torch.from_numpy(store.t.astype(np.float32)).cuda()
+    jobs = {j[0]: j for j in TP_JOBS + TP_JOBS_4}
+    out = {}
+    for name in names.split(","):
+        _, shape, axes, dtype, batch, norm, steps = jobs[name]
+        mesh = sharding.make_mesh(shape, axes, "cuda")
+        cfg = _tp_cfg(dtype, batch, norm)
+        rows = epoch_rows(store, cfg, 0)[:steps]
+        probe = sharding.shard_train_state(init_train_state(cfg, "cuda", seed=SEED), mesh)
+        dp = sharding.DataParallelUpdate(cfg, True, None, mesh)
+        local = torch.from_numpy(rows[0][sharding.local_batch(rows.shape[1], mesh)]).cuda()
+        dp.forward_backward(probe, store.gather(local), t_all[local])
+        dp.reduce()
+        grads = {k: p.grad / mesh.data_size for k, p in probe.model.named_parameters()}
+        if probe.model.shard_specs is not None:
+            grads = sharding.gather_state_dict(grads, probe.model.shard_specs, mesh)
+        grads = {k: v.float().cpu() for k, v in grads.items()}
+        del probe, dp
+        state = sharding.shard_train_state(init_train_state(cfg, "cuda", seed=SEED), mesh)
+        fn = sharding.make_sharded_epoch_fn(cfg, steps, mesh, with_msssim=True)
+        torch.cuda.synchronize()
+        reset_counts()  # the main path's run starts here
+        for k in collectives.BYTES:
+            collectives.BYTES[k] = 0
+        t0 = time.perf_counter()
+        state, aux = fn(state, store, rows, None)
+        losses = aux["loss"].cpu().clone()
+        wall = time.perf_counter() - t0
+        counts, routes = launch_counts(), dict(tt.FWD_ROUTE_LAUNCHES)  # ... and ends here
+        moved = dict(collectives.BYTES)
+        whole = sharding.gather_train_state(state, mesh)
+        weights = {k: v.detach().float().cpu().clone() for k, v in whole.model.state_dict().items()}
+        del whole
+        rows1 = epoch_rows(store, cfg, 1)[:TP_TIME_STEPS]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, _ = fn(state, store, rows1, None)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / TP_TIME_STEPS
+        ms = start.elapsed_time(end) / TP_TIME_STEPS
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = fn(state, store, epoch_rows(store, cfg, 2)[:2], None)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3 / 2
+        events = [(e.key.lower(), getattr(e, "self_device_time_total", 0.0) or 0.0)
+                  for e in prof.key_averages()]
+        device_ms = sum(us for _, us in events) / 1e3 / 2
+        # gloo's copies of the collectives' tensors between the card and the host
+        copy_ms = sum(us for key, us in events if "memcpy" in key) / 1e3 / 2
+        out[name] = {"losses": losses, "grads": grads, "weights": weights, "launches": counts,
+                     "routes": routes, "bytes": moved, "wall_s": wall, "ms": ms,
+                     "host_ms": host_ms, "profiled_ms": prof_ms, "device_ms": device_ms,
+                     "copy_ms": copy_ms,
+                     "rank": mesh.rank, "data_index": mesh.data_index,
+                     "model_index": mesh.model_index, "type": type(fn).__name__,
+                     "captures": fn.captures, "backend": torch.distributed.get_backend()}
+        del state, fn
+        torch.cuda.empty_cache()
+    torch.save(out, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def _spawn_tp(tmp: str, world: int, jobs: list, tag: str) -> list:
+    init = os.path.join(tmp, f"{tag}_init")
+    outs = [os.path.join(tmp, f"{tag}_rank{r}.pt") for r in range(world)]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    names = ",".join(j[0] for j in jobs)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                               str(world), init, outs[r], names], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag} rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _one_process(cfg: TrainConfig, store: FrameStore, rows: np.ndarray) -> dict:
+    """One process at the global batch from the seed's weights, eager: the
+    first step's gradients (no update), then the steps over ``rows``."""
+    from repnerv_tpu_torch.train.loop import _make_forward_backward
+
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    t_all = torch.from_numpy(store.t.astype(np.float32)).cuda()
+    idx = torch.from_numpy(rows[0]).cuda()
+    _make_forward_backward(cfg, None)(state, store.gather(idx), t_all[idx])
+    grads = {k: p.grad.float().cpu() for k, p in state.model.named_parameters()}
+    state = init_train_state(cfg, "cuda", seed=SEED)
+    step = make_train_step(cfg, len(rows), with_msssim=True)
+    losses = []
+    for r in torch.from_numpy(rows).cuda():
+        state, aux = step(state, store.gather(r), t_all[r])
+        losses.append(aux["loss"])
+    return {"losses": torch.stack(losses).float().cpu(), "grads": grads,
+            "weights": {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}}
+
+
+def _tp_check(job: tuple, ranks: list, store: FrameStore, smi: str) -> dict:
+    """Each rank of ``job`` against one process at the global batch."""
+    name, shape, axes, dtype, batch, norm, steps = job
+    cfg = _tp_cfg(dtype, batch, norm)
+    saved = _deterministic(True)
+    try:
+        one = _one_process(cfg, store, epoch_rows(store, cfg, 0)[:steps])
+    finally:
+        _deterministic(saved)
+    loss_tol, grad_tol = STEP_TOL[dtype]
+    per_step = BN_PER_STEP if norm == "bn" else PER_STEP
+    want_routes = dict.fromkeys(dk.ROUTES, 0)
+    if norm != "bn":
+        want_routes.update({k: v * steps for k, v in TP_ROUTES[dtype].items()})
+    res = {"ranks": []}
+    ok = True
+    for r in ranks:
+        got = r[name]
+        loss_rel = ((got["losses"] - one["losses"]).abs() / one["losses"].abs()).max().item()
+        g_rel, _ = _rel_by_tensor(got["grads"], one["grads"], grad_tol)
+        w_rel, w_over = _rel_by_tensor(got["weights"], one["weights"], GLOO_WEIGHT_RTOL)
+        g_worst, w_worst = max(g_rel, key=g_rel.get), max(w_rel, key=w_rel.get)
+        launches = {k: got["launches"][k] for k in per_step}
+        want = {k: v * steps for k, v in per_step.items()}
+        rank_ok = (loss_rel <= loss_tol and g_rel[g_worst] <= grad_tol and launches == want
+                   and got["routes"] == want_routes and got["type"] == "ShardedEpoch"
+                   and got["captures"] == 0 and bool(torch.isfinite(got["losses"]).all()))
+        ok = ok and rank_ok
+        idle = 1 - got["device_ms"] / got["profiled_ms"] if got["profiled_ms"] else None
+        row = {"rank": got["rank"], "data_index": got["data_index"],
+               "model_index": got["model_index"], "loss_max_rel": loss_rel,
+               "grad_max_rel": g_rel[g_worst], "grad_worst": g_worst,
+               "weight_max_rel": w_rel[w_worst], "weight_worst": w_worst,
+               "weight_entries_over_1e-4": w_over, "launches": launches, "routes": got["routes"],
+               "bytes_per_step": {k: v / steps for k, v in got["bytes"].items()},
+               "ms": got["ms"], "host_ms": got["host_ms"], "profiled_ms": got["profiled_ms"],
+               "device_ms": got["device_ms"], "copy_ms": got["copy_ms"], "idle_share": idle,
+               "wall_s": got["wall_s"],
+               "losses": got["losses"].tolist(), "ok": rank_ok}
+        res["ranks"].append(row)
+        log(f"[tp] {name}: rank {row['rank']} (data {row['data_index']}, model "
+            f"{row['model_index']}, {got['backend']}) " + _losses_line("per-step losses",
+                                                                       got["losses"]))
+        log(f"[tp] {name}: rank {row['rank']} vs one process at -b {batch}: losses max rel "
+            f"{loss_rel:.3e} (tol {loss_tol:g}); first-step gradients max |d|/max|ref| "
+            f"{g_rel[g_worst]:.3e} at {g_worst} (tol {grad_tol:g}); final weights max "
+            f"|d|/max|ref| {w_rel[w_worst]:.3e} at {w_worst} (reported); launches "
+            f"{launches} (expect {want}), K3 by route "
+            f"{ {k: v for k, v in got['routes'].items() if v} }; collectives move "
+            f"{ {k: round(v / steps / 2**20, 3) for k, v in got['bytes'].items()} } MiB a step; "
+            f"{got['ms']:.3f} ms a step (CUDA events over {TP_TIME_STEPS} steps; host "
+            f"{got['host_ms']:.3f}), device {got['device_ms']:.3f} ms (copies to and from the "
+            f"host {got['copy_ms']:.3f}) of {got['profiled_ms']:.3f} ms a profiled step (idle "
+            f"share {idle if idle is None else round(idle, 3)}) "
+            f"[{smi}] {'ok' if rank_ok else 'FAIL'}")
+    log(f"[tp] {name}: " + _losses_line(f"one process at -b {batch} per-step losses",
+                                        one["losses"]))
+    res.update(ok=ok, losses=one["losses"].tolist(), mesh=list(shape), axes=list(axes),
+               dtype=dtype, batch=batch, norm=norm, steps=steps)
+    if not ok:
+        raise AssertionError(f"phase 11 {name}: the ranks differ from one process")
+    return res
+
+
+def _tp_train_main(tmp: str, smi: str) -> dict:
+    """(c) train_main --mesh_shape 1 1 --mesh_axes data model (an NCCL world
+    of one through the CUDA graph) against the run without the flag, f32, one
+    epoch: per-step losses to the bit, launches of a replayed step."""
+    runs = {}
+    cwd = os.getcwd()
+    saved = _deterministic(True)
+    os.chdir(tmp)
+    try:
+        for name, extra in (("plain", []), ("mesh11", ["--mesh_shape", "1", "1",
+                                                        "--mesh_axes", "data", "model"])):
+            argv = [a if TRAIN_ARGV[i - 1] != "-e" else "1" for i, a in enumerate(TRAIN_ARGV)]
+            with EpochRecorder() as rec:
+                reset_counts()  # the main path's run starts here
+                res = train_main.main(argv + ["--compute_dtype", "float32", "--outf",
+                                              f"tp_{name}"] + extra)
+                counts = launch_counts()  # ... and ends here
+            fn, = rec.epoch_fns()
+            runs[name] = {"losses": torch.cat([c[2].cpu() for c in rec.calls]),
+                          "replay": {k: launches_of(fn.replay_counts)[k] for k in PER_STEP},
+                          "type": type(fn).__name__, "captures": fn.captures,
+                          "launches": counts, "history": res["history"]}
+    finally:
+        os.chdir(cwd)
+        _deterministic(saved)
+    a, b = runs["plain"], runs["mesh11"]
+    equal = torch.equal(a["losses"], b["losses"])
+    ok = (equal and b["replay"] == a["replay"] == PER_STEP and b["type"] == "ShardedEpoch"
+          and b["captures"] == 1 and b["launches"] == a["launches"])
+    log(f"[tp] train_main --mesh_shape 1 1 --mesh_axes data model ({b['type']}, NCCL world of "
+        f"one) vs without ({a['type']}), f32, {len(a['losses'])} steps: per-step losses equal "
+        f"bits {equal}; a replayed step launches {b['replay']} vs {a['replay']}; captures "
+        f"{b['captures']}; launches {b['launches']} vs {a['launches']} [{smi}] "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train_main over a (1, 1) data x model mesh differs from the plain run")
+    return {"losses_equal_bits": equal, "replay_launches": b["replay"],
+            "launches": b["launches"], "steps": len(a["losses"])}
+
+
+def phase_tp_kernels() -> dict:
+    """Phase 11 (e): K3 / K4 at a model rank's shard shapes, beside phase 5.
+    torch.profiler now and then returns a trace with no kernel at all, in
+    phase 5 as after phase 10, while the wrappers launched
+    (``profile_kernels`` traces again; ``phase_profiler_probe``)."""
+    return stage_train_rows(TP_SHAPES, torch.Generator().manual_seed(SEED + 11), "tp-kernels")
+
+
+def phase_profiler_probe() -> dict:
+    """After phase 10: K4 and K5 once more under torch.profiler at phase 11
+    (e)'s block-4 shard (f32), and whether the wrappers launched and the
+    profiler saw their kernels.  In an earlier full run (e) ran here and the
+    profiler saw no K4; launches that moved with no kernel seen point at the
+    profiler, launches that did not move at the path (which fails here).
+    ``TRACES`` holds every trace of the run."""
+    g = torch.Generator().manual_seed(SEED + 12)
+    dev = torch.device("cuda", 0)
+    _, h, w, cin, c, s, _ = TP_SHAPES[-1]
+    x = torch.randn(1, h, w, cin, generator=g).to(dev)
+    wt = ((torch.rand(3, 3, cin, c * s * s, generator=g) * 2 - 1) * (9 * cin) ** -0.5).to(dev)
+    p = dk.pack_weights(wt, torch.zeros(c * s * s, device=dev), s, torch.float32)
+    out, z = tt.stage_forward(x, p, "swish", "tanh")
+    ct = torch.randn(out.shape, generator=g).to(dev)
+    img = torch.rand(1, 720, 1280, generator=g).to(dev)
+    win = sb.window_tuple(11, 1.5)
+    probes = {"K4": (lambda: tt.epilogue_backward(z, ct, None, None, s, "swish", "tanh"),
+                     "epilogue_bwd"),
+              "K5": (lambda: sb.moments_forward(img, img, win), "blur_tiles")}
+    out_rows = {}
+    for name, (fn, fragment) in probes.items():
+        launched, seen = profile_kernels(fn)
+        us = sum(v for k, v in seen.items() if fragment in k.lower())
+        log(f"[profiler-probe] {name} after phase 10: 5 calls launched {launched}; the profiler "
+            f"saw {len(seen)} kernels, *{fragment}* {us / 1e3 / 5:.4f} ms a call on the card"
+            + ("" if us else f" (none: it saw {sorted(seen)[:8]})")
+            + f"; {empty_traces()} empty traces of {len(TRACES)} in the run so far")
+        if launched < 5:
+            raise AssertionError(f"{name}: 5 calls launched {launched} kernels")
+        out_rows[name] = {"launched": launched, "kernels_seen": len(seen),
+                          "device_ms": us / 1e3 / 5 if us else None}
+    del x, out, z, ct, img
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def phase_tp(tmp: str, smi: str, kernel_rows: dict) -> dict:
+    """Phase 11: (a) two gloo ranks over a (1, 2) data x model mesh, bf16
+    and f32, and (d) --norm bn over two data ranks, in one world; (b) four
+    ranks over (2, 2); (c) train_main over a (1, 1) data x model mesh; with
+    (e)'s ``kernel_rows``."""
+    out = {"kernels": kernel_rows}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks2 = _spawn_tp(tmp, 2, TP_JOBS, "tp2")
+    ranks4 = _spawn_tp(tmp, 4, TP_JOBS_4, "tp4")
+    out["ranks_wall_s"] = time.perf_counter() - t0
+    store = _tp_store()
+    for job in TP_JOBS:
+        out[job[0]] = _tp_check(job, ranks2, store, smi)
+    out[TP_JOBS_4[0][0]] = _tp_check(TP_JOBS_4[0], ranks4, store, smi)
+    del store
+    torch.cuda.empty_cache()
+    out["train_main"] = _tp_train_main(tmp, smi)
+    return out
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -2414,12 +2813,15 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
         train_rows = phase_train_kernels()
+        tp_rows = phase_tp_kernels()
         train = phase_train(tmp)
         int8_rows = phase_int8_kernel()
         compress = phase_compress(tmp)
         ooc = phase_outofcore(tmp, compress["path-a"]["launches"])
         multi = phase_multi(tmp, os.path.join(tmp, "result", "bfloat16",
                                               f"model_pr{PRUNE:.2f}_q{QBIT}.rnvb"))
+        probe = phase_profiler_probe()
+        tp = phase_tp(tmp, device["smi"], tp_rows)
     for name in sys.modules:
         if name.split(".")[0] in ("jax", "jaxlib", "repnerv_tpu"):
             raise AssertionError(f"the port imported {name}")
@@ -2495,6 +2897,26 @@ def main() -> None:
                    if key == "K4" else {}),
                 "shapes": rows,
             })
+        # the same kernels at one model rank's shard shapes (phase 11 (e)), with
+        # the launches of rank 0's steps over the (1, 2) mesh (phase 11 (a))
+        for dname in ("float32", "bfloat16"):
+            rows = [r for r in tp["kernels"][key] if r["dtype"] == dname]
+            srcs = stage_sources(dname) if key == "K3" else {"source": src}
+            job = "tp_f32" if dname == "float32" else "tp_bf16"
+            kernels.append({
+                "name": f"{fn}[{dname}, model shard 1/2]", "route": "cuda", **srcs,
+                "replaces": replaces,
+                "launches": tp[job]["ranks"][0]["launches"][key],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                # blocks 1-4 of one rank's -b 1 step over a model axis of 2 (c = 48)
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                **yardsticks(rows),
+                **({"device_ms": sum(r["device_ms"] for r in rows),
+                    "library_note": "no single PyTorch call computes the epilogue backward"}
+                   if key == "K4" else {}),
+                "shapes": rows,
+            })
     rows = train_rows["K5"]
     kernels.append({
         "name": "ssim_moments[float32]", "route": "cuda",
@@ -2561,6 +2983,9 @@ def main() -> None:
     log("[compress] summary " + json.dumps(compress))
     log("[ooc] summary " + json.dumps(ooc))
     log("[multi] summary " + json.dumps(multi))
+    log("[tp] summary " + json.dumps(tp))
+    log("[profiler-probe] summary " + json.dumps(
+        {**probe, "traces": len(TRACES), "empty_traces": empty_traces()}))
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])
     print(json.dumps(
@@ -2571,5 +2996,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:  # one rank of phase 10 (d), started by phase_gloo
         gloo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 11, started by _spawn_tp
+        tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
     else:
         main()

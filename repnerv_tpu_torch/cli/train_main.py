@@ -22,14 +22,20 @@ resume file that a rerun with the same output directory picks up.
 ``--mesh_shape N`` trains data-parallel over N ranks of a
 ``torch.distributed`` world (``parallel/sharding.py``), started by
 ``torchrun --nproc_per_node N -m repnerv_tpu_torch.cli.train_main ...`` (N = 1
-needs no torchrun: a world of one in the process).  The fused epoch runs
+needs no torchrun: a world of one in the process); ``--mesh_shape D M
+--mesh_axes data model`` adds tensor parallelism over M ranks of a model
+axis, each rank training its shards of the model, and ``--norm bn`` takes
+the global batch's statistics over the data ranks.  The fused epoch runs
 when the batch divides by the data axis, else the per-step path; a video on
-the host trains per step under a mesh.  Only rank 0 writes ``rank0.txt``,
-checkpoints and ``.pth`` files; every rank evaluates the same frames.
+the host trains per step under a mesh; a model axis or ``--norm bn`` over
+data ranks trains through the eager step (their collectives are not
+captured).  Only rank 0 writes ``rank0.txt``, checkpoints and ``.pth``
+files, in the plain layout: under a model axis every rank first joins the
+gather of the shards, so a checkpoint of either kind resumes in the other.
+Every rank evaluates the same frames, under a model axis on the whole
+model gathered once per evaluation.
 
-Refused: a ``model`` mesh axis (tensor parallelism, ROADMAP A11), ``--norm
-bn`` over more than one rank (ROADMAP A13) and ``--profile`` (the JAX
-profiler).
+Refused: ``--profile`` (the JAX profiler).
 """
 
 from __future__ import annotations
@@ -129,11 +135,30 @@ def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
     if os.path.exists(os.path.join(outf, ckpt.RESUME_FILE)) and not cfg.overwrite:
         state.step, start_epoch = ckpt.load_resume(outf, state.model, state.optimizer)
         print(f"resumed from epoch {start_epoch}")
-    if mesh is not None:
-        # rank 0's values, resumed or from --weight ones included, on every rank
-        state = sharding.shard_train_state(state, mesh)
-
     n_params = param_count(state.model)
+    if mesh is not None:
+        # rank 0's values, resumed or from --weight ones included, on every
+        # rank; under a model axis each rank keeps its shards
+        state = sharding.shard_train_state(state, mesh)
+    tp = mesh is not None and mesh.model_size > 1
+
+    def whole(st):
+        """The whole state (every rank joins the gather under a model axis)."""
+        return sharding.gather_train_state(st, mesh) if tp else st
+
+    eval_gen = None  # the whole model that evaluation runs under a model axis
+
+    def eval_model_of(st):
+        """The whole weights, gathered over the model group (every rank joins)."""
+        nonlocal eval_gen
+        if not tp:
+            return st.model
+        eval_gen = sharding.gather_model(st.model, mesh, eval_gen)
+        return eval_gen
+
+    def whole_weights(snap):
+        return sharding.gather_state_dict(snap, state.model.shard_specs, mesh) if tp else snap
+
     log(outf, 0, f"{exp_id(cfg)}\nModel Params: {n_params / 1e6}M")
     writer = None
     if rank0:
@@ -153,6 +178,14 @@ def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
                 "falling back from the fused whole-epoch scan to per-step "
                 "dispatch under the mesh")
             fused = False
+        if sharding.collective_forward(cfg, mesh):
+            why = (f"a model axis of {mesh.model_size}" if tp else
+                   f"--norm bn over a data axis of {mesh.data_size}")
+            log(outf, 0, f"WARNING: {why} trains through the eager step: the forward's "
+                "collectives are not captured in a CUDA graph (ROADMAP A12)")
+        if tp:
+            log(outf, 0, f"in-train evaluation under a model axis of {mesh.model_size} runs on "
+                "the whole model, gathered over the model group once per evaluation")
         if fused and cfg.data.batch_size % mesh.data_size == 0:
             train_step = sharding.make_sharded_epoch_fn(cfg, steps_per_epoch, mesh,
                                                         with_msssim=with_msssim)
@@ -223,8 +256,9 @@ def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
             pending_train_best = (snapshot(state.model), extra)
         save_now = (epoch + 1) % cfg.ckpt_freq == 0 or epoch == cfg.epochs - 1
         if (epoch + 1) % cfg.eval_freq == 0 or epoch > cfg.epochs - 10:
+            eval_model = eval_model_of(state)
             val_psnr, val_msssim = evaluate(
-                state.model, eval_step, val_store, cfg, max_steps=max_steps
+                eval_model, eval_step, val_store, cfg, max_steps=max_steps
             )
             if cfg.eval_fps:
                 n_frames = val_store.num_samples if max_steps is None else min(
@@ -232,11 +266,11 @@ def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
                 )
                 bsz = min(cfg.data.batch_size, n_frames)
                 t_val = val_store.t[val_store.sample_indices()[:n_frames]]
-                state.model.eval()
+                eval_model.eval()
                 try:
-                    fps = measure_decode_fps(state.model, cfg, t_val, bsz)
+                    fps = measure_decode_fps(eval_model, cfg, t_val, bsz)
                 finally:
-                    state.model.train()
+                    eval_model.train()
                 log(outf, 0, f"FPS: {fps:.2f}")
             is_val_best = val_psnr[-1] > bests["val_best_psnr"]
             bests["val_best_psnr"] = max(bests["val_best_psnr"], float(val_psnr[-1]))
@@ -255,26 +289,32 @@ def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
             if is_val_best:
                 pending_val_best = (snapshot(state.model), extra)
 
-        if not save_now or not rank0:
+        if not save_now:
             continue
-        ckpt.save_pth(os.path.join(outf, "model_latest.pth"), state.model.state_dict(), extra)
-        if pending_train_best is not None:
-            ckpt.save_pth(os.path.join(outf, "model_train_best.pth"), *pending_train_best)
-        if pending_val_best is not None:
-            ckpt.save_pth(os.path.join(outf, "model_val_best.pth"), *pending_val_best)
-            pending_val_best = None
+        full = whole(state)
+        train_best = (None if pending_train_best is None else
+                      (whole_weights(pending_train_best[0]), pending_train_best[1]))
+        val_best = (None if pending_val_best is None else
+                    (whole_weights(pending_val_best[0]), pending_val_best[1]))
+        pending_train_best = pending_val_best = None
+        if not rank0:
+            continue
+        ckpt.save_pth(os.path.join(outf, "model_latest.pth"), full.model.state_dict(), extra)
+        if train_best is not None:
+            ckpt.save_pth(os.path.join(outf, "model_train_best.pth"), *train_best)
+        if val_best is not None:
+            ckpt.save_pth(os.path.join(outf, "model_val_best.pth"), *val_best)
         if reparam:
             # the deploy snapshot is a fused copy; training goes on with the branches
             ckpt.save_pth(os.path.join(outf, "model_latest_deploy.pth"),
-                          deploy_state(state.model), extra)
-            if pending_train_best is not None:
-                best, bextra = pending_train_best
+                          deploy_state(full.model), extra)
+            if train_best is not None:
                 ckpt.save_pth(os.path.join(outf, "model_train_best_deploy.pth"),
-                              deploy_state(state.model, best), bextra)
-        pending_train_best = None
-        ckpt.save_resume(outf, state.model, state.optimizer, state.step, epoch + 1)
+                              deploy_state(full.model, train_best[0]), train_best[1])
+        ckpt.save_resume(outf, full.model, full.optimizer, full.step, epoch + 1)
 
     state, restored = guard.finalize(state)
+    state = whole(state)
     if restored and rank0:
         # the final checkpoint boundary wrote a collapsed model_latest:
         # supersede it with the restored endpoint
@@ -293,15 +333,9 @@ def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
 
 
 def _refusal(a) -> str:
-    """What the port does not do, with the ROADMAP row that would, or what
-    the flags need: checked before anything is written."""
-    if a.mesh_shape and "model" in a.mesh_axes:
-        return (f"--mesh_axes model: tensor parallelism is not ported "
-                f"({sharding.MODEL_AXIS_ROW}); data parallelism takes --mesh_axes data")
+    """What the port does not do, or what the flags need: checked before
+    anything is written."""
     n = int(np.prod(a.mesh_shape)) if a.mesh_shape else 1
-    if n > 1 and a.norm == "bn":
-        return (f"--norm bn over {n} ranks is not ported: each rank's batch statistics would "
-                f"differ from the global batch's ({sharding.NORM_BN_ROW})")
     if n > 1 and sharding.torchrun_env() is None and not torch.distributed.is_initialized():
         return (f"--mesh_shape {' '.join(map(str, a.mesh_shape))} needs {n} processes: "
                 f"torchrun --nproc_per_node {n} -m repnerv_tpu_torch.cli.train_main ...")

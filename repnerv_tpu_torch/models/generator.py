@@ -81,7 +81,33 @@ class Int8Entry(NamedTuple):
     packed: decode_int8.PackedInt8Stage
 
 
+def squash_name(cfg: ModelConfig) -> str:
+    """The output squash of ``cfg``, by the kernels' name for it."""
+    return "sigmoid" if cfg.sigmoid else "tanh"
+
+
+def use_ptrain(cfg: ModelConfig, x: torch.Tensor, train: bool) -> bool:
+    """Whether a block runs the fused training stage (K3 forward, K4
+    backward) on its NHWC input ``x``: training, at most two frames, no
+    norm, fused branches, no remat, not "mixed", and a stage of at least
+    ``KERNEL_MIN_PIXELS`` pixels (the JAX package's gate)."""
+    return (
+        train
+        and cfg.use_pallas_train
+        and x.shape[0] <= 2
+        and cfg.norm == "none"
+        and cfg.online_fuse
+        and not cfg.remat
+        and cfg.compute_dtype != "mixed"
+        and x.shape[1] * x.shape[2] >= KERNEL_MIN_PIXELS
+    )
+
+
 class Generator(nn.Module):
+    # the split dim of each state entry when the module holds one rank's
+    # shards (parallel/sharding.py::shard_train_state), else None
+    shard_specs: Optional[Dict[str, Optional[int]]] = None
+
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cpu"):
         super().__init__()
         self.cfg = cfg
@@ -140,13 +166,23 @@ class Generator(nn.Module):
                 )
         return self._packed[key]
 
-    def forward(self, embed: torch.Tensor) -> List[torch.Tensor]:
-        """embed [B, embed_length] -> list of NHWC f32 frames."""
+    def forward(self, embed: torch.Tensor, mesh=None) -> List[torch.Tensor]:
+        """embed [B, embed_length] -> list of NHWC f32 frames.  ``mesh`` (a
+        ``parallel.sharding.Mesh``): the train-mode forward of
+        ``parallel/tensor_parallel.py`` over its ranks, on this rank's
+        shards under a model axis (``shard_specs``), with the global batch
+        statistics of ``--norm bn`` over its data axis."""
+        if mesh is not None:
+            if not self.training:
+                raise ValueError("the forward over a mesh trains; evaluate the gathered model")
+            from ..parallel import tensor_parallel
+
+            return tensor_parallel.forward(self, embed, mesh)
         cfg = self.cfg
         train = self.training
         mixed = cfg.compute_dtype == "mixed"
         dtype = DTYPES[cfg.compute_dtype]
-        squash = "sigmoid" if cfg.sigmoid else "tanh"
+        squash = squash_name(cfg)
         h, w, c = cfg.fc_hwd
 
         x = self.stem(embed, dtype=dtype, mixed=mixed)
@@ -175,28 +211,17 @@ class Generator(nn.Module):
                         return outputs
                     li += 1
                     continue
-                big = x.shape[1] * x.shape[2] >= KERNEL_MIN_PIXELS
                 use_decode = (
                     not train
                     and cfg.use_pallas_decode
                     and cfg.norm == "none"
                     and blk.rbr_reparam is not None
-                    and big
-                )
-                use_ptrain = (
-                    train
-                    and cfg.use_pallas_train
-                    and x.shape[0] <= 2
-                    and cfg.norm == "none"
-                    and cfg.online_fuse
-                    and not cfg.remat
-                    and not mixed
-                    and big
+                    and x.shape[1] * x.shape[2] >= KERNEL_MIN_PIXELS
                 )
                 if use_decode:
                     p = self._packed_stage(li, fuse_head, dtype)
                     x = decode_kernel.decode_stage(x.to(dtype).contiguous(), p, cfg.act, squash)
-                elif use_ptrain:
+                elif use_ptrain(cfg, x, train):
                     wt, bt = reparam.fuse(cfg.branch_type, blk)
                     if bt is None:
                         bt = torch.zeros(wt.shape[0], dtype=wt.dtype, device=wt.device)

@@ -84,11 +84,34 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(dim=(0, 1, 2))
-            var = x.var(dim=(0, 1, 2), unbiased=False)
-        else:
-            mean, var = self.running_mean, self.running_var
+            return batch_norm_train(x, self.weight, self.bias, self.eps)
+        mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def batch_norm_train(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float, group=None
+) -> torch.Tensor:
+    """Training-mode batch norm of NHWC ``x`` over (B, H, W) with the given
+    affine parameters.  With a ``group`` of data ranks, the statistics are
+    the global batch's, as JAX's ``jnp.mean`` / ``jnp.var`` over a batch axis
+    that GSPMD shards: the mean from the all-reduced per-channel sums and
+    counts, then the variance as the all-reduced sum of ``(x - mean)^2``
+    over the count (two passes: ``E[x^2] - E[x]^2`` cancels).  Both
+    all-reduces are differentiable, their backward the sum of the ranks'
+    cotangents."""
+    if group is None:
+        mean = x.mean(dim=(0, 1, 2))
+        var = x.var(dim=(0, 1, 2), unbiased=False)
+    else:
+        from ..parallel.collectives import all_reduce
+
+        n = x.new_full((1,), float(x.shape[0] * x.shape[1] * x.shape[2]))
+        sums = all_reduce(torch.cat([x.sum(dim=(0, 1, 2)), n]), group, grad_sum=True)
+        count = sums[-1].detach()
+        mean = sums[:-1] / count
+        var = all_reduce(((x - mean) ** 2).sum(dim=(0, 1, 2)), group, grad_sum=True) / count
+    return (x - mean) * torch.rsqrt(var + eps) * weight + bias
 
 
 class InstanceNorm(nn.Module):
@@ -300,16 +323,27 @@ class Linear(nn.Module):
     def forward(
         self, x: torch.Tensor, dtype: Optional[torch.dtype] = None, mixed: bool = False
     ) -> torch.Tensor:
-        w = self.weight
-        if mixed:
-            x = mxu_matmul_f32(x, w)
-        else:
-            if dtype is not None:
-                x, w = x.to(dtype), w.to(dtype)
-            x = x @ w.t()
-        if self.bias is not None:
-            x = x + self.bias.to(x.dtype)
-        return x
+        return linear(x, self.weight, self.bias, dtype, mixed)
+
+
+def linear(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    dtype: Optional[torch.dtype] = None,
+    mixed: bool = False,
+) -> torch.Tensor:
+    """``x @ w.T + b`` with ``w`` [out, in], in ``dtype`` (or "mixed": f32
+    accumulation of bf16 products)."""
+    if mixed:
+        x = mxu_matmul_f32(x, w)
+    else:
+        if dtype is not None:
+            x, w = x.to(dtype), w.to(dtype)
+        x = x @ w.t()
+    if b is not None:
+        x = x + b.to(x.dtype)
+    return x
 
 
 class MLP(nn.Module):

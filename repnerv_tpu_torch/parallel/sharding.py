@@ -1,9 +1,10 @@
-"""Data-parallel training and decode over ``torch.distributed`` (port of
-``repnerv_tpu/parallel/sharding.py``).
+"""Data- and tensor-parallel training and data-parallel decode over
+``torch.distributed`` (port of ``repnerv_tpu/parallel/sharding.py``).
 
-A JAX device on the mesh's ``"data"`` axis is a rank here: one process, one
-device (``cuda:LOCAL_RANK`` on a card, the CPU otherwise).  Every rank holds
-the whole model; the global batch of frames splits over the ranks.
+A JAX device of the mesh is a rank here: one process, one device
+(``cuda:LOCAL_RANK`` on a card, the CPU otherwise).  The global batch of
+frames splits over the ``"data"`` axis; on a data-only mesh every rank holds
+the whole model.
 
 * **Start-up.**  ``torchrun`` sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
   ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``;
@@ -16,40 +17,57 @@ the whole model; the global batch of frames splits over the ranks.
 * **The step** (``make_sharded_train_step``, ``make_sharded_epoch_fn``): each
   rank runs the forward and backward of its rows of the batch; the
   gradients, the loss, the per-stage MSE and MS-SSIM go into one flat f32
-  bucket, which one ``all_reduce`` sums (gloo has no average) and the step
-  divides by the world size; then Adam runs on every rank on the same
-  values, so the ranks' parameters stay equal to the bit.  PSNR is
+  bucket, which one ``all_reduce`` over the data group sums (gloo has no
+  average) and the step divides by the data axis; then Adam runs on every
+  rank on the same values, so the ranks' parameters stay equal to the bit.  PSNR is
   ``-10 log10`` of the averaged MSE, the global batch's (a mean of per-rank
   PSNRs is not).  In the fused epoch on the card the part before the
   all-reduce and the part after it are two CUDA graphs; the all-reduce runs
   between their replays (a gloo collective cannot be captured; capturing
   NCCL is ROADMAP A12).  With a world of one the division is by 1 and the
-  step equals the plain step to the bit (its all-reduce still runs).
+  step equals the plain step to the bit (its all-reduce still runs); so
+  does a ``(1, 1)`` data x model mesh.
 * **An indivisible batch** (``-b 1`` on two ranks): every rank takes the
   whole batch, the gradients are equal, and the result is the single-rank
   step's, as JAX's single-process replication (``local_batch``).
 * **Decode** (``make_sharded_video_decode_fn``): each rank decodes its
   columns of every batch; the checksum's sum is the one collective, and
   kept frames are gathered.
-
-Not ported: tensor parallelism over a ``"model"`` axis (``params_specs``,
-ROADMAP A11) and ``--norm bn`` under a data axis of more than one rank,
-whose statistics JAX takes over the global batch (ROADMAP A13); both are
-refused.
+* **Tensor parallelism** over a ``"model"`` axis (``make_mesh((D, M),
+  ("data", "model"))``, rank ``r = d * M + m`` as JAX's row-major device
+  grid): ``params_specs`` splits the leaves JAX's does, ``shard_train_state``
+  keeps each rank's slices (and those of Adam's moments), and the step runs
+  ``parallel/tensor_parallel.py``'s forward on them, its collectives over
+  the model group; the bucket of the rank's shard gradients is all-reduced
+  over the data group (the ranks of its model index) and divided by the data
+  axis.  The ranks of one data index take the same rows.  The epoch is
+  eager: gloo collectives inside the forward cannot be captured (capturing
+  NCCL is ROADMAP A12).  ``gather_train_state`` puts the whole model back
+  together on every rank (checkpoints), ``gather_model`` its weights
+  (evaluation).
+* **``--norm bn`` over data ranks**: the batch statistics of the global
+  batch (``models/layers.py::batch_norm_train``, all-reduced over the data
+  group), as JAX's ``jnp.mean`` / ``jnp.var`` over the GSPMD-sharded batch;
+  eager as above.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 import os
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from ..config import TrainConfig, head_plan
+from ..models.generator import Generator
 from ..train.loop import (
     FusedEpoch,
     Masks,
@@ -60,18 +78,21 @@ from ..train.loop import (
     apply_update,
     decode_video,
     init_train_state,
+    make_optimizer_like,
 )
 from ..train.schedule import lr_at_step
+from .tensor_parallel import divides
 
 TIMEOUT = timedelta(seconds=300)  # a collective that waits longer fails
-MODEL_AXIS_ROW = "ROADMAP A11"  # tensor parallelism over a "model" axis
-NORM_BN_ROW = "ROADMAP A13"  # batch statistics across ranks
+AXES = ("data", "model", "video")
 
 
 @dataclass(frozen=True)
 class Mesh:
     """The ranks of a ``torch.distributed`` world laid out as a mesh of
-    ``shape`` over ``axis_names`` ("data", or "video" for the suite)."""
+    ``shape`` over ``axis_names`` ("data" and "model", or "video" for the
+    suite), rank ``r`` at ``np.unravel_index(r, shape)`` (JAX's
+    ``np.asarray(devices).reshape(shape)``)."""
 
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
@@ -79,13 +100,39 @@ class Mesh:
     world_size: int
     device: torch.device  # this rank's
     owns_group: bool = False  # make_mesh started the process group
+    data_group: Any = None  # the ranks of this rank's model index; None: the world
+    model_group: Any = None  # the ranks of this rank's data index; None: no model axis
 
     def axis_size(self, name: str) -> int:
         return dict(zip(self.axis_names, self.shape)).get(name, 1)
 
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate on axis ``name`` (0 off the mesh's axes)."""
+        if name not in self.axis_names:
+            return 0
+        return int(np.unravel_index(self.rank, self.shape)[self.axis_names.index(name)])
+
     @property
     def data_size(self) -> int:
         return self.axis_size("data")
+
+    @property
+    def model_size(self) -> int:
+        return self.axis_size("model")
+
+    @property
+    def data_index(self) -> int:
+        return self.axis_index("data")
+
+    @property
+    def model_index(self) -> int:
+        return self.axis_index("model")
+
+    def model_slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous slice of ``t`` along ``dim`` on the model
+        axis."""
+        n = t.shape[dim] // self.model_size
+        return t.narrow(dim, self.model_index * n, n)
 
 
 def torchrun_env(environ=None) -> Optional[Dict[str, int]]:
@@ -140,13 +187,12 @@ def make_mesh(shape: Sequence[int] = (), axes: Sequence[str] = ("data",), device
     """The mesh over the torchrun world (started here if need be); ``()``
     means every rank on the first axis.  ``--mesh_shape 1`` without torchrun
     starts a world of one in this process; more ranks without torchrun, or
-    another count than torchrun started, raise."""
+    another count than torchrun started, raise.  A model axis of more than
+    one rank makes the data and model process groups (``_mesh_groups``)."""
     shape, axes = tuple(int(d) for d in shape), tuple(axes)
-    if "model" in axes:
-        raise ValueError(f"the 'model' mesh axis (tensor parallelism) is not ported "
-                         f"({MODEL_AXIS_ROW}); data parallelism takes --mesh_axes data")
-    if not set(axes) <= {"data", "video"}:
-        raise ValueError(f"mesh axes {axes}: the port lays ranks out over 'data' (or 'video')")
+    if not set(axes) <= set(AXES):
+        raise ValueError(f"mesh axes {axes}: the port lays ranks out over 'data' and 'model' "
+                         f"(or 'video')")
     if shape:
         axes = axes[: len(shape)]
         if len(axes) != len(shape):
@@ -173,7 +219,27 @@ def make_mesh(shape: Sequence[int] = (), axes: Sequence[str] = ("data",), device
     if n is not None and n < world:
         raise ValueError(f"mesh {shape} uses {n} of the {world} ranks torchrun started: "
                          f"start {n} (torchrun --nproc_per_node {n})")
-    return Mesh(shape, axes, rank, world, dev, owns)
+    mesh = Mesh(shape, axes, rank, world, dev, owns)
+    if mesh.model_size > 1:
+        data_group, model_group = _mesh_groups(mesh, timeout)
+        mesh = dataclasses.replace(mesh, data_group=data_group, model_group=model_group)
+    return mesh
+
+
+def _mesh_groups(mesh: Mesh, timeout: timedelta = TIMEOUT):
+    """(data group, model group) of this rank: the ranks of its model index,
+    and those of its data index.  Every rank makes every group, in one order
+    (a rank that skipped one would hang the others)."""
+    grid = np.arange(math.prod(mesh.shape)).reshape(mesh.shape)
+    axis = mesh.axis_names.index("model")
+    rows = np.moveaxis(grid, axis, -1).reshape(-1, mesh.model_size)  # a model group a row
+    groups = []
+    for members in [rows[:, m] for m in range(mesh.model_size)] + list(rows):
+        members = [int(r) for r in members]
+        group = dist.new_group(ranks=members, timeout=timeout)
+        if mesh.rank in members:
+            groups.append(group)
+    return tuple(groups)  # its data group is made first
 
 
 def close_mesh(mesh: Optional[Mesh]) -> None:
@@ -189,11 +255,12 @@ def batch_spec(mesh: Mesh) -> Tuple[str, ...]:
 
 
 def process_local_slice(global_n: int, mesh: Mesh) -> slice:
-    """This rank's contiguous rows of a leading global batch dim: rank ``r``
-    of ``W`` owns ``[r*n/W, (r+1)*n/W)``.  Every rank draws the same
-    permutation and keeps only this slice."""
-    per = global_n // mesh.world_size
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    """This rank's contiguous rows of a leading global batch dim: data
+    coordinate ``d`` of a data axis of ``D`` owns ``[d*n/D, (d+1)*n/D)``, so
+    the ranks of one data index (a model group) take the same rows.  Every
+    rank draws the same permutation and keeps only this slice."""
+    per = global_n // mesh.data_size
+    return slice(mesh.data_index * per, (mesh.data_index + 1) * per)
 
 
 def local_batch(global_n: int, mesh: Mesh) -> slice:
@@ -220,10 +287,87 @@ def replicate(tensors: Iterable[torch.Tensor], mesh: Mesh) -> list:
     return tensors
 
 
+def params_specs(state: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, Optional[int]]:
+    """The dim along which each entry of a whole model's ``state_dict()``
+    splits over the model axis, or None (replicated): JAX's ``params_specs``
+    over the reference's names and PyTorch's layouts.  The stem's first
+    linear is column parallel (JAX's ``dout``: torch dim 0, its bias too),
+    its later ones row parallel (JAX's ``din``: torch dim 1); a conv weight
+    (JAX's HWIO split on O: OIHW dim 0) splits, its bias, the heads' and the
+    norms' 1-D leaves do not (nor ECB's ``scale``, 1-D in JAX).  A dim splits
+    where the model axis has more than one rank and divides it."""
+    m = mesh.model_size
+
+    def spec(name: str, t: torch.Tensor) -> Optional[int]:
+        if name.startswith("stem."):
+            layer = int(name.split(".")[1]) // 2  # stem.{2i}.*: linear i
+            if name.endswith(".weight"):
+                dout, din = t.shape
+                if layer == 0 and divides(dout, m):
+                    return 0
+                return 1 if layer > 0 and divides(din, m) else None
+            return 0 if layer == 0 and divides(t.shape[0], m) else None
+        if t.dim() == 4 and not name.endswith(".scale") and divides(t.shape[0], m):
+            return 0
+        return None
+
+    return {k: spec(k, v) for k, v in state.items()}
+
+
+def shard_params(state: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """This rank's slices of a whole model's state (``params_specs``), the
+    replicated entries as they are."""
+    specs = params_specs(state, mesh)
+    return {k: v if specs[k] is None else mesh.model_slice(v, specs[k]) for k, v in state.items()}
+
+
+def _gather(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(mesh.model_size)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.model_group)
+    return torch.cat(parts, dim)
+
+
+def gather_state_dict(state: Mapping[str, torch.Tensor], specs: Mapping[str, Optional[int]],
+                      mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """A whole model's state from every rank's shards (``state`` of the
+    model that ``shard_train_state`` made, or a snapshot of it): every rank
+    of the model group must call it."""
+    return {k: v if specs[k] is None else _gather(v.detach(), specs[k], mesh)
+            for k, v in state.items()}
+
+
+def _relayout(state: TrainState, specs: Mapping[str, Optional[int]], mesh: Mesh,
+              each) -> TrainState:
+    """``state`` with every split parameter and its Adam moments replaced by
+    ``each(tensor, dim)`` (a slice, or a gather): the parameters in place in
+    a copy of the model, the moments in a new optimizer."""
+    model = copy.deepcopy(state.model)
+    old = dict(state.model.named_parameters())
+    for name, p in old.items():
+        if specs[name] is not None:
+            owner, _, attr = name.rpartition(".")
+            setattr(model.get_submodule(owner), attr,
+                    nn.Parameter(each(p.detach(), specs[name]).clone()))
+    new = dict(model.named_parameters())
+    opt = make_optimizer_like(state.optimizer, list(new.values()))
+    for name, p in old.items():
+        st = state.optimizer.state.get(p)
+        if not st:
+            continue
+        d = specs[name]
+        opt.state[new[name]] = {
+            k: (each(v, d).clone() if d is not None and torch.is_tensor(v) and v.shape == p.shape
+                else v.clone() if torch.is_tensor(v) else v)
+            for k, v in st.items()}
+    return TrainState(model, opt, state.step)
+
+
 def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
-    """Lay out an existing state (resumed, or from ``--weight``) over the
-    mesh, keeping its values: rank 0's parameters, buffers, Adam moments and
-    step count go to every rank."""
+    """Lay out an existing whole state (fresh, resumed, or from ``--weight``)
+    over the mesh, keeping its values: rank 0's parameters, buffers, Adam
+    moments and step count go to every rank; then, under a model axis, each
+    rank keeps its slices of the leaves ``params_specs`` splits and of their
+    moments (the model then carries ``shard_specs``)."""
     opt = state.optimizer
     tensors = [v for v in state.model.state_dict().values()]
     for p in state.model.parameters():
@@ -232,39 +376,83 @@ def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
     step = torch.tensor([state.step], dtype=torch.long, device=mesh.device)
     replicate([step], mesh)
     state.step = int(step.item())
+    if mesh.model_size == 1:
+        return state
+    specs = params_specs(state.model.state_dict(), mesh)
+    state = _relayout(state, specs, mesh, mesh.model_slice)
+    state.model.shard_specs = specs
     return state
 
 
+def gather_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """The whole state on every rank from the shards of ``shard_train_state``
+    (a plain model and its Adam; ``state`` itself as it is without a model
+    axis).  Every rank of the model group must call it."""
+    specs = state.model.shard_specs
+    if specs is None:
+        return state
+    full = _relayout(state, specs, mesh, lambda t, d: _gather(t, d, mesh))
+    full.model.shard_specs = None
+    return full
+
+
+def gather_model(model: Generator, mesh: Mesh, into: Optional[Generator] = None) -> Generator:
+    """The whole model on every rank from ``model``'s shards: their gathered
+    weights loaded into ``into`` (a whole ``Generator`` of ``model``'s
+    config, made here when None), for evaluation; ``model`` itself without a
+    model axis.  Adam's state is not gathered.  Every rank of the model
+    group must call it."""
+    if model.shard_specs is None:
+        return model
+    if into is None:
+        into = Generator(model.cfg, device=mesh.device)
+        into.train(model.training)
+    into.load_state_dict(gather_state_dict(model.state_dict(), model.shard_specs, mesh))
+    return into
+
+
 def make_sharded_train_state(cfg: TrainConfig, mesh: Mesh) -> TrainState:
-    """A fresh state on this rank's device, equal on every rank."""
+    """A fresh state on this rank's device: the seed's whole model on every
+    rank, then its slices (JAX's init-then-shard: the weights a plain run
+    starts from)."""
     return shard_train_state(init_train_state(cfg, mesh.device), mesh)
 
 
-def _check_cfg(cfg: TrainConfig, mesh: Mesh) -> None:
-    if cfg.model.norm == "bn" and mesh.data_size > 1:
-        raise ValueError(f"--norm bn under a data axis of {mesh.data_size} ranks is not ported: "
-                         f"each rank's batch statistics would differ from the global batch's "
-                         f"({NORM_BN_ROW})")
+def collective_forward(cfg: TrainConfig, mesh: Mesh) -> bool:
+    """The step's forward runs collectives (a model axis, or ``--norm bn``
+    over data ranks): it runs eagerly, outside any CUDA graph."""
+    return mesh.model_size > 1 or (cfg.model.norm == "bn" and mesh.data_size > 1)
 
 
 class DataParallelUpdate:
     """The data-parallel step in three parts: ``forward_backward`` (this
-    rank's rows; gradients and metrics into one flat bucket), ``reduce`` (one
-    all-reduce of the bucket) and ``apply`` (the average, the prune masks and
-    Adam; returns the step's metrics).  The bucket is [gradients of every
-    parameter in ``parameters()`` order, loss, MSE per stage, MS-SSIM per
-    stage]; after ``forward_backward`` each ``.grad`` is a view of it."""
+    rank's rows, and under a model axis its shards; gradients and metrics
+    into one flat bucket), ``reduce`` (one all-reduce of the bucket over the
+    data group) and ``apply`` (the average over the data axis, the prune
+    masks and Adam; returns the step's metrics).  The bucket is [gradients of
+    every parameter in ``parameters()`` order, loss, MSE per stage, MS-SSIM
+    per stage]; after ``forward_backward`` each ``.grad`` is a view of it."""
 
     def __init__(self, cfg: TrainConfig, with_msssim: bool, param_transform, mesh: Mesh):
-        _check_cfg(cfg, mesh)
         self.mesh = mesh
         self.with_msssim = with_msssim
         self.n_stage = sum(head_plan(cfg.model))
-        self.forward_backward_fn = _make_forward_backward(cfg, param_transform)
+        self.collective = collective_forward(cfg, mesh)
+        self._forward_backward = _make_forward_backward(cfg, param_transform,
+                                                        mesh if self.collective else None)
         self.bucket: Optional[torch.Tensor] = None
         self._views: list = []
         self._key = None
         self.n_grad = 0
+
+    def forward_backward_fn(self, state: TrainState, frames, t):
+        """``train/loop.py``'s forward-backward: over the mesh (on the
+        model's shards under a model axis; the global batch statistics of
+        ``--norm bn``) where the forward runs collectives."""
+        if self.mesh.model_size > 1 and state.model.shard_specs is None:
+            raise ValueError("a model axis of more than one rank trains the shards of "
+                             "shard_train_state / make_sharded_train_state, not a whole model")
+        return self._forward_backward(state, frames, t)
 
     def _bucket(self, params: list) -> torch.Tensor:
         key = tuple((p.data_ptr(), p.shape, p.dtype) for p in params)
@@ -301,14 +489,14 @@ class DataParallelUpdate:
                 p.grad = v
 
     def reduce(self) -> None:
-        dist.all_reduce(self.bucket, op=dist.ReduceOp.SUM)
+        dist.all_reduce(self.bucket, op=dist.ReduceOp.SUM, group=self.mesh.data_group)
 
     def apply(self, state: TrainState, masks: Masks, lr) -> dict:
-        """The average over ranks (gloo has no AVG: SUM, then / world
+        """The average over the data axis (gloo has no AVG: SUM, then / its
         size), the update, and the step's metrics as device tensors."""
         n, s = self.n_grad, self.n_stage
         with torch.no_grad():
-            self.bucket.div_(self.mesh.world_size)
+            self.bucket.div_(self.mesh.data_size)
         apply_update(state, masks, lr)
         with torch.no_grad():
             # copies: the next step overwrites the bucket
@@ -321,10 +509,11 @@ class DataParallelUpdate:
 
 def make_sharded_train_step(cfg: TrainConfig, steps_per_epoch: int, mesh: Mesh, *,
                             with_msssim: bool = False, param_transform=None):
-    """The data-parallel train step: ``step(state, frames, t, masks)`` on this
+    """The train step over a mesh: ``step(state, frames, t, masks)`` on this
     rank's rows of the batch (``run_epoch`` hands it them: it reads the
-    step's ``mesh``) -> (state, aux), aux as ``build_train_step_fn``'s, the
-    metrics those of the global batch."""
+    step's ``mesh``) and, under a model axis, on the shards of ``state``
+    (``make_sharded_train_state``) -> (state, aux), aux as
+    ``build_train_step_fn``'s, the metrics those of the global batch."""
     schedule = _schedule(cfg, steps_per_epoch)
     dp = DataParallelUpdate(cfg, with_msssim, param_transform, mesh)
 
@@ -346,7 +535,9 @@ class ShardedEpoch(FusedEpoch):
     call, buffers and graph key as ``FusedEpoch``; it keeps this rank's
     columns of the global batch matrix.  A step is the part before the
     all-reduce, the all-reduce, and the part after it; on the card the two
-    parts are two CUDA graphs, replayed around the all-reduce."""
+    parts are two CUDA graphs, replayed around the all-reduce.  A step whose
+    forward runs collectives (``collective_forward``: a model axis, or
+    ``--norm bn`` over data ranks) runs eagerly on every device."""
 
     def __init__(self, cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool,
                  param_transform, mesh: Mesh):
@@ -387,6 +578,12 @@ class ShardedEpoch(FusedEpoch):
             self._after(state, buf, masks)
         return before, after
 
+    def _steps(self, state: TrainState, store, buf: _StepBuffers, masks: Masks, n: int) -> None:
+        if not self.dp.collective:
+            return super()._steps(state, store, buf, masks, n)
+        for _ in range(n):
+            self.step(state, store, buf, masks)
+
     def _replay(self) -> None:
         before, after = self.graph
         before.replay()
@@ -407,10 +604,10 @@ def make_sharded_epoch_fn(cfg: TrainConfig, steps_per_epoch: int, mesh: Mesh, *,
 
 def make_sharded_video_decode_fn(cfg: TrainConfig, mesh: Mesh, *, keep_frames: bool = False):
     """``run(model, t_batches [n_batches, B])``: each rank decodes its
-    columns of every batch (B must divide by the data axis).  Returns the
-    per-batch checksums [n_batches], summed over the ranks (the one
-    collective), or with ``keep_frames`` the frames [n_batches, B, H, W, 3]
-    gathered from every rank."""
+    columns of every batch (B must divide by the data axis) with the whole
+    ``model``.  Returns the per-batch checksums [n_batches], summed over the
+    data group (the one collective), or with ``keep_frames`` the frames
+    [n_batches, B, H, W, 3] gathered from it."""
     n_dev = mesh.data_size
 
     def run(model, t_batches: torch.Tensor) -> torch.Tensor:
@@ -420,12 +617,12 @@ def make_sharded_video_decode_fn(cfg: TrainConfig, mesh: Mesh, *, keep_frames: b
         local = t_batches[:, process_local_slice(b, mesh)]
         ys = decode_video(model, cfg, local, keep_frames=keep_frames)
         if not keep_frames:
-            dist.all_reduce(ys, op=dist.ReduceOp.SUM)
+            dist.all_reduce(ys, op=dist.ReduceOp.SUM, group=mesh.data_group)
             return ys
-        if mesh.world_size == 1:
+        if n_dev == 1:
             return ys
-        parts = [torch.empty_like(ys) for _ in range(mesh.world_size)]
-        dist.all_gather(parts, ys.contiguous())
+        parts = [torch.empty_like(ys) for _ in range(n_dev)]
+        dist.all_gather(parts, ys.contiguous(), group=mesh.data_group)
         return torch.cat(parts, dim=1)
 
     return run

@@ -86,6 +86,12 @@ def make_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Adam:
     )
 
 
+def make_optimizer_like(opt: torch.optim.Adam, params) -> torch.optim.Adam:
+    """A new optimizer over ``params`` with every setting of ``opt`` (one
+    that ``make_optimizer`` made: the learning-rate tensor is shared)."""
+    return type(opt)(params, **opt.defaults)
+
+
 def init_train_state(cfg: TrainConfig, device, seed: Optional[int] = None) -> TrainState:
     model = Generator(cfg.model, seed=cfg.manual_seed if seed is None else seed, device=device)
     model.train()
@@ -117,20 +123,22 @@ def _schedule(cfg: TrainConfig, steps_per_epoch: int) -> dict:
     )
 
 
-def _make_forward_backward(cfg: TrainConfig, param_transform):
+def _make_forward_backward(cfg: TrainConfig, param_transform, mesh=None):
     """fb(state, frames, t) -> (outputs, targets, loss): the forward, the
     loss and its backward into fresh ``.grad`` tensors; outputs and loss
-    come back detached."""
+    come back detached.  ``mesh``: the forward runs over it
+    (``Generator.forward``'s argument)."""
     mcfg = cfg.model
+    kw = {} if mesh is None else {"mesh": mesh}
 
     def forward_backward(state: TrainState, frames, t):
         model, opt = state.model, state.optimizer
         embed = positional_encoding(t, mcfg.embed)
         if param_transform is None:
-            outs = model(embed)
+            outs = model(embed, **kw)
         else:
             params = param_transform(dict(model.named_parameters()))
-            outs = torch.func.functional_call(model, params, (embed,))
+            outs = torch.func.functional_call(model, params, (embed,), kw)
         targets = [adaptive_avg_pool(frames, o.shape[1:3]) for o in outs]
         loss = multi_scale_loss(outs, targets, cfg.loss_type, cfg.lw)
         opt.zero_grad(set_to_none=True)

@@ -13,8 +13,9 @@ of each global batch), "epoch" (``make_sharded_epoch_fn`` driven by
 ``run_fused_epoch``), "indivisible" (a global batch of 1 on every rank),
 "replicate" (``shard_train_state`` of rank-seeded weights), "decode"
 (``make_sharded_video_decode_fn`` with and without kept frames),
-"train_cli" (``train_main.main`` in a directory of this rank's) and "suite"
-(``suite_main.main`` in parallel mode there: a video a rank).
+"train_cli" (``train_main.main`` in a directory of this rank's), "suite"
+(``suite_main.main`` in parallel mode there: a video a rank) and "mesh"
+(``make_mesh`` of a model axis over the two ranks).
 """
 
 import os
@@ -99,6 +100,16 @@ for job in spec["jobs"]:
 
         os.chdir(spec["cli_dirs"][mesh.rank])
         out["train_cli"] = [train_main.main(argv)["history"] for argv in spec["cli_argvs"]]
+    elif job == "mesh":
+        out["mesh"] = {}
+        for shape, axes in spec["meshes"]:
+            m = sharding.make_mesh(shape, axes, "cpu")
+            out["mesh"][shape, axes] = {
+                "shape": m.shape, "axis_names": m.axis_names, "world_size": m.world_size,
+                "model_size": m.model_size, "data_size": m.data_size,
+                "model_index": m.model_index, "data_index": m.data_index,
+                "model_group": dist.get_world_size(m.model_group),
+                "data_group": dist.get_world_size(m.data_group)}
     elif job == "suite":
         from repnerv_tpu_torch.cli import suite_main
 

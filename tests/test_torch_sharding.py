@@ -18,8 +18,10 @@ train, decode and eval CLIs) on the CPU.
   and ``train_main --mesh_shape 2`` (only rank 0 writes).
 * A world of one (gloo, in this process) equals the plain path to the bit:
   ``train_main --mesh_shape 1`` and ``decode_main --mesh_shape 1``.
-* The refusals: a ``model`` axis (ROADMAP A11), ``--norm bn`` over more
-  than one rank (ROADMAP A13), more ranks than torchrun started.
+* The refusals: unknown axis names, more ranks than torchrun started.  A
+  ``model`` axis and ``--norm bn`` over more than one rank, refused until
+  they were ported, now lay out and run in the two-rank world (held to JAX
+  in tests/test_torch_tensor_parallel.py).
 
 The ``gpu`` test (an NCCL world of one equals the plain step to the bit on
 the card) skips here and runs on the card with
@@ -54,6 +56,10 @@ SUITE_ARGV = (
     "--act swish --single_res --branch_type ERB --quant_bit 8 --save_bitstream -e 3 "
     "--n_videos 2 --suite_mode parallel --suite_out suite.json --outf suite --device cpu"
 ).split()
+# the train CLI over two ranks in rows refused until ROADMAP A11 / A13 were
+# ported: (flags, batch)
+PORTED_ROWS = [(["--mesh_shape", "1", "2", "--mesh_axes", "data", "model"], "1"),
+               (["--mesh_shape", "2", "--norm", "bn"], "2")]
 TRAIN_ARGV = (
     "--dataset synth --synthetic_frames 4 --synthetic_hw 24 32 --embed 1.25_4 "
     "--stem_dim_num 16_1 --fc_hw_dim 3_4_6 --expansion 1 --strides 2 2 2 "
@@ -118,12 +124,23 @@ def test_make_sharded_train_state_is_the_seeds_state_on_every_rank(no_world):
 
 @pytest.mark.parametrize("shape,axes,match", [
     ((2,), ("data",), "torchrun --nproc_per_node 2"),
-    ((1, 2), ("data", "model"), "ROADMAP A11"),
-    ((2,), ("model",), "ROADMAP A11"),
+    ((1, 2), ("data", "model"), None),
+    ((2,), ("model",), None),
     ((1,), ("pipe",), "'data'"),
     ((1, 1), ("data",), "axis names"),
 ])
-def test_make_mesh_refuses(no_world, shape, axes, match):
+def test_make_mesh_refuses(request, no_world, shape, axes, match):
+    """What make_mesh refuses; a model axis (``match`` None) it lays out: in
+    the two-rank world each rank gets its coordinate (rank = d * M + m), the
+    model axis's size, and groups of the right sizes."""
+    if match is None:
+        meshes = [o["mesh"][shape, axes] for o in request.getfixturevalue("world2")["outs"]]
+        assert [m["model_index"] for m in meshes] == [0, 1]
+        for m in meshes:
+            assert (m["shape"], m["axis_names"], m["world_size"]) == (shape, axes, 2)
+            assert (m["model_size"], m["data_size"], m["data_index"]) == (2, 1, 0)
+            assert (m["model_group"], m["data_group"]) == (2, 1)
+        return
     with pytest.raises(ValueError, match=match):
         sharding.make_mesh(shape, axes, "cpu")
     assert not dist.is_initialized()
@@ -244,7 +261,8 @@ def world2(tmp_path_factory):
         d.mkdir()
     spec = {
         "jobs": ["step", "psnr", "indivisible", "epoch", "replicate", "decode", "train_cli",
-                 "suite"],
+                 "suite", "mesh"],
+        "meshes": [((1, 2), ("data", "model")), ((2,), ("model",))],
         "cfg": ptcfg,
         "cfg_b1": dataclasses.replace(ptcfg, data=dataclasses.replace(ptcfg.data, batch_size=1)),
         "start": start, "frames": frames, "t": t,
@@ -255,7 +273,9 @@ def world2(tmp_path_factory):
         "decode_t": torch.tensor([[0.0, 0.25], [0.5, 0.75]]),
         "cli_dirs": [str(d) for d in cli_dirs],
         "cli_argvs": [TRAIN_ARGV + ["--mesh_shape", "2", "-b", "2", "--outf", "b2"],
-                      TRAIN_ARGV + ["--mesh_shape", "2", "-b", "1", "--outf", "b1"]],
+                      TRAIN_ARGV + ["--mesh_shape", "2", "-b", "1", "--outf", "b1"]]
+        + [TRAIN_ARGV + ["-b", b] + extra + ["--outf", f"ported{i}"]
+           for i, (extra, b) in enumerate(PORTED_ROWS)],
         "suite_argv": SUITE_ARGV,
     }
     outs = _run_ranks(tmp, spec)
@@ -526,12 +546,28 @@ def test_eval_cli_takes_mesh_shape_and_runs_on_one_device(no_world, tmp_path, mo
 
 
 @pytest.mark.parametrize("extra,row", [
-    (["--mesh_shape", "1", "2", "--mesh_axes", "data", "model"], "ROADMAP A11"),
-    (["--mesh_shape", "2", "--norm", "bn"], "ROADMAP A13"),
+    (PORTED_ROWS[0][0], None),
+    (PORTED_ROWS[1][0], None),
     (["--mesh_shape", "2"], "torchrun --nproc_per_node 2"),
 ])
-def test_train_cli_refuses(tmp_path, monkeypatch, capsys, extra, row):
+def test_train_cli_refuses(request, tmp_path, monkeypatch, capsys, extra, row):
+    """What train_main refuses; a model axis and --norm bn over two ranks
+    (``row`` None) it runs: in the two-rank world, against one process at
+    the global batch (the model axis: -b 1 on each of its ranks; bn: -b 2,
+    a frame a rank, the global batch's statistics)."""
     monkeypatch.chdir(tmp_path)
+    if row is None:
+        i = 2 + [e for e, _ in PORTED_ROWS].index(extra)
+        b = PORTED_ROWS[i - 2][1]
+        norm = ["--norm", "bn"] if "bn" in extra else []
+        single = train_main.main(TRAIN_ARGV + ["-b", b] + norm + ["--outf", "single"])["history"]
+        hists = [o["train_cli"][i] for o in request.getfixturevalue("world2")["outs"]]
+        assert hists[0] == hists[1]
+        for got, ref in zip(hists[0], single):
+            assert got["epoch"] == ref["epoch"]
+            assert got["loss"] == pytest.approx(ref["loss"], rel=1e-5)
+            np.testing.assert_allclose(got["psnr"], ref["psnr"], atol=1e-3)
+        return
     with pytest.raises(SystemExit) as e:
         train_main.main(TRAIN_ARGV + ["-b", "1"] + extra)
     assert e.value.code == 2
@@ -540,13 +576,15 @@ def test_train_cli_refuses(tmp_path, monkeypatch, capsys, extra, row):
 
 
 def test_sharded_step_refuses_batch_norm_over_ranks():
-    """The statistics of --norm bn would be each rank's, not the global
-    batch's (JAX's under GSPMD): refused over more than one rank."""
+    """Refused until the global batch's statistics were ported: both makers
+    now take --norm bn over two ranks, and their step's forward then runs
+    collectives (the eager step); over one rank the plain statistics."""
     cfg = TrainConfig(model=ModelConfig(norm="bn"))
     for make in (sharding.make_sharded_train_step, sharding.make_sharded_epoch_fn):
-        with pytest.raises(ValueError, match="ROADMAP A13"):
-            make(cfg, 1, _mesh())
-    sharding.make_sharded_train_step(cfg, 1, _mesh(0, 1))  # one rank: the plain statistics
+        make(cfg, 1, _mesh())
+    assert sharding.collective_forward(cfg, _mesh())
+    assert not sharding.collective_forward(cfg, _mesh(0, 1))
+    assert isinstance(sharding.make_sharded_epoch_fn(cfg, 1, _mesh()), sharding.ShardedEpoch)
 
 
 def test_decode_cli_needs_torchrun_for_more_ranks(tmp_path, capsys):
