@@ -98,6 +98,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                collectives move, ms a step, device ms, idle share; (c)
                train_main over a (1, 1) data x model mesh (an NCCL world of
                one) vs without: per-step losses to the bit
+ 12. quality — the first 10 epochs of the paper recipe of ROADMAP C14
+               (repnerv_tpu_torch/tools/quality.py: the ERB flagship on the
+               132-frame synthetic 720p video, bf16, -b 1, seed 1, the
+               cosine schedule of -e 300) through train_main --stop_epoch,
+               on the kernel path and with --no_pallas_train: launches a
+               step, train PSNR rising, the epoch-10 PSNR of the kernel path
+               within a stated bound of the library path's and of the
+               300-epoch run's (``python3 chip_smoke.py --quality`` runs
+               phases 1, 2 and 12 alone)
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
 heavy part, with a ``library_note`` saying why; K5's is a depthwise
@@ -2806,6 +2815,79 @@ def phase_tp(tmp: str, smi: str, kernel_rows: dict) -> dict:
     return out
 
 
+# phase 12, the quality check of ROADMAP C14: the first QUALITY_EPOCHS epochs
+# of the paper recipe (repnerv_tpu_torch/tools/quality.py RECIPE: the ERB
+# flagship on the 132-frame synthetic 720p video, bf16, -b 1, seed 1, the
+# cosine schedule of -e 300) through train_main --stop_epoch, on the kernel
+# path (the CUDA-graph step through K3 / K4 / K5) and with --no_pallas_train.
+QUALITY_EPOCHS = 10
+# train PSNR of epoch 10 (its rank0.txt line, 2 decimals) of the whole
+# 300-epoch run (a) that PERF.md's "Quality on the card" reports: seed 1,
+# `python -m repnerv_tpu_torch.tools.quality --work c14`, NVIDIA H100 80GB
+# HBM3, 700.00 W; val PSNR 31.33 dB at epoch 300
+QUALITY_EPOCH10_PSNR = 14.60
+# two repeats of the check on each path, in the same call, logged the same
+# epoch-10 PSNR to the log's 2 decimals (kernel path 14.60 and 14.60,
+# --no_pallas_train 14.75 and 14.75): a spread under 0.005 dB, so the bound
+# is max(0.3, 3 x 0.005) dB
+QUALITY_SPREAD_DB = 0.005
+QUALITY_BOUND_DB = max(0.3, 3 * QUALITY_SPREAD_DB)
+
+
+def phase_quality(tmp: str) -> dict:
+    """Phase 12: train_main on the first QUALITY_EPOCHS epochs of the C14
+    recipe, kernel path then --no_pallas_train: launches a step, PSNR
+    rising, the two paths' epoch-10 train PSNR within QUALITY_BOUND_DB of
+    each other and of the 300-epoch run's."""
+    from repnerv_tpu_torch.tools.quality import RECIPE
+
+    steps = 132 * QUALITY_EPOCHS
+    argv = RECIPE + ["--branch_type", "ERB", "--manualSeed", "1", "--stop_epoch",
+                     str(QUALITY_EPOCHS), "--device", "cuda"]
+    cwd, out = os.getcwd(), {}
+    for use_kernel in (True, False):
+        name = "kernel" if use_kernel else "library"
+        per_step = PER_STEP if use_kernel else PER_STEP_MIXED  # the library path: K5 only
+        os.chdir(tmp)  # train_main writes under result/<outf>
+        try:
+            reset_counts()  # the main path's run starts here
+            t0 = time.perf_counter()
+            res = train_main.main(argv + ["--outf", f"quality_{name}"]
+                                  + ([] if use_kernel else ["--no_pallas_train"]))
+            wall = time.perf_counter() - t0
+            counts = launch_counts()  # ... and ends here
+        finally:
+            os.chdir(cwd)
+        psnr = [h["psnr"][-1] for h in res["history"]]
+        want = {k: v * steps for k, v in per_step.items()}
+        got = {k: counts[k] for k in per_step}
+        log(f"[quality] {name} path: train_main {QUALITY_EPOCHS} epochs x 132 steps of the C14 "
+            f"recipe in {wall:.1f} s; launches {got} (expect {want}); train PSNR by epoch "
+            + ", ".join(f"{p:.4f}" for p in psnr))
+        if got != want:
+            raise AssertionError(f"[quality] {name}: launches {got}, expected {want}")
+        if not all(np.isfinite(psnr)) or not psnr[-1] > psnr[0]:
+            raise AssertionError(f"[quality] {name}: PSNR did not rise: {psnr}")
+        out[name] = {"psnr": psnr, "wall_s": wall, "launches": got}
+        del res
+        torch.cuda.empty_cache()
+    k10, l10 = out["kernel"]["psnr"][-1], out["library"]["psnr"][-1]
+    log(f"[quality] epoch {QUALITY_EPOCHS} train PSNR: kernel path {k10:.4f}, --no_pallas_train "
+        f"{l10:.4f} (|d| {abs(k10 - l10):.4f}), the 300-epoch run {QUALITY_EPOCH10_PSNR:.4f} "
+        f"(|d| {abs(k10 - QUALITY_EPOCH10_PSNR):.4f}); bound {QUALITY_BOUND_DB} dB "
+        f"(max of 0.3 and 3x the repeats' spread {QUALITY_SPREAD_DB})")
+    if abs(k10 - l10) > QUALITY_BOUND_DB:
+        raise AssertionError(f"[quality] the kernel path's epoch-{QUALITY_EPOCHS} PSNR {k10:.4f} "
+                             f"is more than {QUALITY_BOUND_DB} dB from the library path's "
+                             f"{l10:.4f}: run the ladder of PERF.md 'Quality on the card'")
+    if abs(k10 - QUALITY_EPOCH10_PSNR) > QUALITY_BOUND_DB:
+        raise AssertionError(f"[quality] the kernel path's epoch-{QUALITY_EPOCHS} PSNR {k10:.4f} "
+                             f"is more than {QUALITY_BOUND_DB} dB from the 300-epoch run's "
+                             f"{QUALITY_EPOCH10_PSNR:.4f}: run the ladder of PERF.md 'Quality "
+                             f"on the card'")
+    return out
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -2822,6 +2904,7 @@ def main() -> None:
                                               f"model_pr{PRUNE:.2f}_q{QBIT}.rnvb"))
         probe = phase_profiler_probe()
         tp = phase_tp(tmp, device["smi"], tp_rows)
+        quality = phase_quality(tmp)
     for name in sys.modules:
         if name.split(".")[0] in ("jax", "jaxlib", "repnerv_tpu"):
             raise AssertionError(f"the port imported {name}")
@@ -2984,6 +3067,7 @@ def main() -> None:
     log("[ooc] summary " + json.dumps(ooc))
     log("[multi] summary " + json.dumps(multi))
     log("[tp] summary " + json.dumps(tp))
+    log("[quality] summary " + json.dumps(quality))
     log("[profiler-probe] summary " + json.dumps(
         {**probe, "traces": len(TRACES), "empty_traces": empty_traces()}))
     print(json.dumps({"kernels": kernels}))
@@ -2998,5 +3082,11 @@ if __name__ == "__main__":
         gloo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     elif sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 11, started by _spawn_tp
         tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--quality"]:  # phases 1, 2 and 12 alone
+        device = phase_device()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            log("[quality] summary " + json.dumps(phase_quality(tmp)))
+        print(device["smi"])
     else:
         main()

@@ -35,6 +35,10 @@ gather of the shards, so a checkpoint of either kind resumes in the other.
 Every rank evaluates the same frames, under a model axis on the whole
 model gathered once per evaluation.
 
+``--stop_epoch N`` (the port's own flag) trains the first N epochs of the
+``-e`` schedule and stops with a checkpoint: the learning rates are those of
+the whole run, so epoch N's PSNR is the whole run's at N.
+
 Refused: ``--profile`` (the JAX profiler).
 """
 
@@ -90,7 +94,9 @@ def deploy_state(model, state=None) -> dict:
     return generator_to_deploy(model).state_dict()
 
 
-def run_training(cfg: TrainConfig, device="cuda") -> dict:
+def run_training(cfg: TrainConfig, device="cuda", stop_epoch: int = 0) -> dict:
+    """Train ``cfg`` on ``device``; with ``stop_epoch`` only up to that epoch
+    of the ``cfg.epochs`` schedule (a checkpoint and the resume file at it)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available")
@@ -103,12 +109,12 @@ def run_training(cfg: TrainConfig, device="cuda") -> dict:
         mesh = sharding.make_mesh(cfg.mesh_shape, cfg.mesh_axes, device)
         device = mesh.device
     try:
-        return _train(cfg, device, mesh)
+        return _train(cfg, device, mesh, stop_epoch or cfg.epochs)
     finally:
         sharding.close_mesh(mesh)
 
 
-def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
+def _train(cfg: TrainConfig, device: torch.device, mesh, stop_epoch: int) -> dict:
     rank0 = mesh is None or mesh.rank == 0
     log = log_line if rank0 else _silent
     outf = os.path.join(cfg.outf, cfg.suffix) if cfg.suffix else cfg.outf
@@ -223,7 +229,7 @@ def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
     macs = generator_macs(cfg.model, deploy=cfg.model.deploy)["macs"]
     log(outf, 0, f"MACs: {macs / 1e9:.2f}G")
 
-    for epoch in range(start_epoch, cfg.epochs):
+    for epoch in range(start_epoch, min(stop_epoch, cfg.epochs)):
         ep_start = datetime.now()
         state, m = run(state, train_step, store, cfg, epoch, max_steps=max_steps)
         state, _ = guard.observe(epoch, float(m.psnr[-1]), state)
@@ -254,7 +260,7 @@ def _train(cfg: TrainConfig, device: torch.device, mesh) -> dict:
         extra = {"epoch": epoch + 1, **bests}
         if is_train_best:
             pending_train_best = (snapshot(state.model), extra)
-        save_now = (epoch + 1) % cfg.ckpt_freq == 0 or epoch == cfg.epochs - 1
+        save_now = (epoch + 1) % cfg.ckpt_freq == 0 or epoch + 1 in (stop_epoch, cfg.epochs)
         if (epoch + 1) % cfg.eval_freq == 0 or epoch > cfg.epochs - 10:
             eval_model = eval_model_of(state)
             val_psnr, val_msssim = evaluate(
@@ -347,11 +353,16 @@ def _refusal(a) -> str:
 def main(argv=None) -> dict:
     parser = build_parser(eval_mode=False)
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    parser.add_argument(
+        "--stop_epoch", type=int, default=0,
+        help="stop after this epoch of the -e schedule (checkpoint and resume file "
+        "written there; the same command without the flag resumes to -e)",
+    )
     a = parser.parse_args(argv)
     refused = _refusal(a)
     if refused:
         parser.error(refused)
-    return run_training(args_to_config(a, eval_mode=False), a.device)
+    return run_training(args_to_config(a, eval_mode=False), a.device, a.stop_epoch)
 
 
 if __name__ == "__main__":

@@ -32,7 +32,9 @@ the whole model.
   step's, as JAX's single-process replication (``local_batch``).
 * **Decode** (``make_sharded_video_decode_fn``): each rank decodes its
   columns of every batch; the checksum's sum is the one collective, and
-  kept frames are gathered.
+  kept frames are gathered.  A timed decode (``train/loop.py::
+  measure_decode_fps``) keeps the checksums on the rank and reduces them,
+  with the reps' times, once after its loop (``reduce_decode_reps``).
 * **Tensor parallelism** over a ``"model"`` axis (``make_mesh((D, M),
   ("data", "model"))``, rank ``r = d * M + m`` as JAX's row-major device
   grid): ``params_specs`` splits the leaves JAX's does, ``shard_train_state``
@@ -602,20 +604,25 @@ def make_sharded_epoch_fn(cfg: TrainConfig, steps_per_epoch: int, mesh: Mesh, *,
     return ShardedEpoch(cfg, steps_per_epoch, with_msssim, param_transform, mesh)
 
 
-def make_sharded_video_decode_fn(cfg: TrainConfig, mesh: Mesh, *, keep_frames: bool = False):
+def make_sharded_video_decode_fn(cfg: TrainConfig, mesh: Mesh, *, keep_frames: bool = False,
+                                 local: bool = False):
     """``run(model, t_batches [n_batches, B])``: each rank decodes its
     columns of every batch (B must divide by the data axis) with the whole
     ``model``.  Returns the per-batch checksums [n_batches], summed over the
     data group (the one collective), or with ``keep_frames`` the frames
-    [n_batches, B, H, W, 3] gathered from it."""
+    [n_batches, B, H, W, 3] gathered from it.  With ``local`` it stops
+    before the collective: this rank's checksums (or frames), on its own
+    stream, for ``reduce_decode_reps`` to sum once after a timed loop."""
     n_dev = mesh.data_size
 
     def run(model, t_batches: torch.Tensor) -> torch.Tensor:
         n, b = t_batches.shape
         if b % n_dev:
             raise ValueError(f"decode batch {b} does not divide by the data axis ({n_dev})")
-        local = t_batches[:, process_local_slice(b, mesh)]
-        ys = decode_video(model, cfg, local, keep_frames=keep_frames)
+        ys = decode_video(model, cfg, t_batches[:, process_local_slice(b, mesh)],
+                          keep_frames=keep_frames)
+        if local:
+            return ys
         if not keep_frames:
             dist.all_reduce(ys, op=dist.ReduceOp.SUM, group=mesh.data_group)
             return ys
@@ -626,6 +633,18 @@ def make_sharded_video_decode_fn(cfg: TrainConfig, mesh: Mesh, *, keep_frames: b
         return torch.cat(parts, dim=1)
 
     return run
+
+
+def reduce_decode_reps(times: Sequence[float], checksums: torch.Tensor, mesh: Mesh):
+    """The collectives of a timed sharded decode, once, after its loop:
+    each rep's seconds as its slowest rank's (a max over the data group) and
+    the reps' local checksums [reps, n_batches] summed over it.  A
+    collective inside the timed window would time its own latency and that
+    of the host threads that drive it (PERF.md, C23)."""
+    t = torch.tensor(list(times), dtype=torch.float64, device=checksums.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.data_group)
+    dist.all_reduce(checksums, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    return t.tolist(), checksums
 
 
 def make_sharded_decode(cfg: TrainConfig, mesh: Mesh):

@@ -729,7 +729,10 @@ def measure_decode_fps(
     frames per second of the fastest.  Decodes ``(1 + reps) * n_batches``
     batches in all.  With ``mesh`` each rank decodes its columns of every
     batch (``parallel.sharding.make_sharded_video_decode_fn``); ``bsz`` is
-    the global batch and must divide by the data axis."""
+    the global batch and must divide by the data axis.  The timed window
+    holds no collective: each rep's checksums stay on the rank, and after the
+    loop ``reduce_decode_reps`` sums them and takes each rep's time as the
+    slowest rank's."""
     device = next(model.parameters()).device
     if device.type != "cuda":
         raise RuntimeError(f"decode fps is measured on a CUDA device, not {device}")
@@ -737,20 +740,22 @@ def measure_decode_fps(
         def decode_all(m, t):
             return decode_video(m, cfg, t, keep_frames=False)
     else:
-        from ..parallel.sharding import make_sharded_video_decode_fn
+        from ..parallel.sharding import make_sharded_video_decode_fn, reduce_decode_reps
 
-        decode_all = make_sharded_video_decode_fn(cfg, mesh, keep_frames=False)
+        decode_all = make_sharded_video_decode_fn(cfg, mesh, local=True)
     t_np = decode_time_batches(t_all, bsz)
     n_batches, bsz = t_np.shape
     t_mat = torch.from_numpy(t_np).to(device)
     decode_all(model, t_mat)  # warm-up: build, allocator
-    times = []
+    times, sums = [], []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        decode_all(model, t_mat)
+        sums.append(decode_all(model, t_mat))
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
+    if mesh is not None:
+        times, _ = reduce_decode_reps(times, torch.stack(sums), mesh)
     return n_batches * bsz / min(times)

@@ -95,6 +95,12 @@ for job in spec["jobs"]:
             "checksums": sharding.make_sharded_video_decode_fn(cfg, mesh)(model, t_b),
             "one_batch": sharding.make_sharded_decode(cfg, mesh)(model, t_b[0]),
         }
+        # a timed decode's path: this rank's checksums of two reps, reduced
+        # once after them, with rep times that differ by rank
+        local = sharding.make_sharded_video_decode_fn(cfg, mesh, local=True)
+        out["decode"]["local"] = local(model, t_b)
+        out["decode"]["reduced"] = sharding.reduce_decode_reps(
+            [1.0 + mesh.rank, 2.0 - mesh.rank], torch.stack([local(model, t_b)] * 2), mesh)
     elif job == "train_cli":
         from repnerv_tpu_torch.cli import train_main
 

@@ -423,6 +423,25 @@ def test_decode_over_two_ranks_equals_single_decode(world2):
         torch.testing.assert_close(got["checksums"], sums, rtol=1e-6, atol=0)
 
 
+def test_timed_decode_reduces_checksums_and_times_after_its_loop(world2):
+    """The checksum path of a timed decode over two ranks (C23): each rank
+    keeps its own columns' checksums (``local=True``, no collective), and
+    ``reduce_decode_reps`` sums them over the ranks once, after the reps, to
+    ``decode_video``'s checksums, and takes each rep's time as the slowest
+    rank's."""
+    ptcfg = world2["ptcfg"]
+    model = ckpt.load_state(Generator(ptcfg.model), world2["start"]).eval()
+    t_b = torch.tensor([[0.0, 0.25], [0.5, 0.75]])
+    for out in world2["outs"]:
+        r = out["rank"]
+        mine = loop.decode_video(model, ptcfg, t_b[:, r : r + 1], keep_frames=False)
+        torch.testing.assert_close(out["decode"]["local"], mine, rtol=1e-6, atol=0)
+        times, sums = out["decode"]["reduced"]
+        assert times == [2.0, 2.0]
+        for row in sums:
+            torch.testing.assert_close(row, out["decode"]["checksums"], rtol=1e-6, atol=0)
+
+
 def _rank0_epochs(path):
     lines = [ln for ln in open(path).read().splitlines() if "Epoch[" in ln]
     return [float(ln.split("PSNR: ")[1].split()[0].split(",")[-1]) for ln in lines]
@@ -522,6 +541,35 @@ def test_decode_main_world_of_one_equals_the_plain_decode(no_world, tmp_path, ca
         pb = np.asarray(Image.open(tmp_path / "b" / f"pred_{i}.png"))
         np.testing.assert_array_equal(pa, pb)
     assert not dist.is_initialized()
+
+
+def test_timed_decode_world_of_one_equals_decode_video(no_world):
+    """``measure_decode_fps``'s path over a gloo world of one (C23): the
+    local checksums of three reps, reduced once after them, equal
+    ``decode_video``'s checksums to the bit, and so do those of the sharded
+    decode with its collective; the kept frames, local or gathered, equal
+    ``decode_video``'s frames; the reps' times come back as they went."""
+    cfg = TrainConfig(model=ModelConfig(embed="1.25_4", stem_dim_num="16_1", fc_hw_dim="3_4_6",
+                                        strides=(2, 2), lower_width=4, branch_type="ERB"))
+    model = Generator(cfg.model, seed=3).eval()
+    t_b = torch.tensor([[0.0, 0.2], [0.4, 0.6], [0.8, 1.0]])
+    sums = loop.decode_video(model, cfg, t_b, keep_frames=False)
+    frames = loop.decode_video(model, cfg, t_b)
+    mesh = sharding.make_mesh((1,), ("data",), "cpu")
+    try:
+        local = sharding.make_sharded_video_decode_fn(cfg, mesh, local=True)
+        times, reduced = sharding.reduce_decode_reps(
+            [0.5, 0.25, 0.75], torch.stack([local(model, t_b) for _ in range(3)]), mesh)
+        assert times == [0.5, 0.25, 0.75]
+        for row in reduced:
+            assert torch.equal(row, sums)
+        assert torch.equal(sharding.make_sharded_video_decode_fn(cfg, mesh)(model, t_b), sums)
+        for keep_local in (True, False):
+            got = sharding.make_sharded_video_decode_fn(cfg, mesh, keep_frames=True,
+                                                        local=keep_local)(model, t_b)
+            assert torch.equal(got, frames)
+    finally:
+        sharding.close_mesh(mesh)
 
 
 def test_eval_cli_takes_mesh_shape_and_runs_on_one_device(no_world, tmp_path, monkeypatch,

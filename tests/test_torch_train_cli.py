@@ -107,9 +107,30 @@ def test_train_cli_trains_in_mixed(tmp_path, monkeypatch, extra):
 
     real = train_main.run_training
     monkeypatch.setattr(train_main, "run_training",
-                        lambda cfg, device: real(replace(cfg, fused_epoch=False), device))
+                        lambda cfg, device, *rest: real(replace(cfg, fused_epoch=False), device,
+                                                        *rest))
     eager = train_main.main(ARGV + ["-e", "2", "--outf", "eager"] + extra)["history"]
     assert [(h["loss"], h["psnr"]) for h in eager] == [(h["loss"], h["psnr"]) for h in hist]
+
+
+def test_train_cli_stop_epoch_is_the_whole_runs_start(tmp_path, monkeypatch):
+    """--stop_epoch 2 of -e 4 trains the first two epochs of the 4-epoch
+    schedule (the same learning rates, losses and PSNRs as the whole run's
+    first two, to the bit), writes the checkpoint and the resume file at
+    epoch 2, and the same command without the flag resumes to epoch 4."""
+    monkeypatch.chdir(tmp_path)
+    whole = train_main.main(ARGV + ["-e", "4", "--outf", "whole"])["history"]
+    part = train_main.main(ARGV + ["-e", "4", "--outf", "part", "--stop_epoch", "2"])
+    assert [h["epoch"] for h in part["history"]] == [1, 2]
+    assert part["history"] == whole[:2]
+    _, extra = ckpt.load_pth(os.path.join(part["outf"], "model_latest.pth"))
+    assert extra["epoch"] == 2
+    assert os.path.exists(os.path.join(part["outf"], ckpt.RESUME_FILE))
+    log = open(os.path.join(part["outf"], "rank0.txt")).read()
+    assert "Epoch[2/4]" in log and "Epoch[3/4]" not in log
+    rest = train_main.main(ARGV + ["-e", "4", "--outf", "part"])
+    assert [h["epoch"] for h in rest["history"]] == [3, 4]
+    assert rest["state"].step == 16
 
 
 def test_train_cli_needs_a_card_by_default(tmp_path, monkeypatch):
