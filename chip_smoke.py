@@ -107,11 +107,23 @@ Phases (each prints its own lines; any failure exits non-zero):
                within a stated bound of the library path's and of the
                300-epoch run's (``python3 chip_smoke.py --quality`` runs
                phases 1, 2 and 12 alone)
+ 13. profile — train_main --profile on phase 6's flags (bf16, -e 2): the
+               first epoch's 3 eager steps under utils/profiling.py's trace
+               (torch.profiler, CPU and CUDA), the rest of the run eager; the
+               trace file read back: K3 / K4 / K5 kernel events equal to the
+               traced epoch's launches (4 / 4 / 7 a step), the top device ops,
+               ms of the traced steps beside the untraced eager steps of epoch
+               2 (``python3 chip_smoke.py --profile`` runs phases 1, 2 and 13
+               alone)
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
 heavy part, with a ``library_note`` saying why; K5's is a depthwise
-``F.conv2d`` on the five stacked maps of each moments launch).  The last line is {"ok": true, "device": {...}}.  Needs no
-network; imports no JAX and nothing of the JAX package.
+``F.conv2d`` on the five stacked maps of each moments launch).  Every
+torch.profiler session goes through ``utils/profiling.py::trace`` (its
+window primed and padded against ROADMAP C24); the ``[profiler-probe]``
+summary counts the traces of ``profile_kernels`` that lost kernels.  The
+last line is {"ok": true, "device": {...}}.  Needs no network; imports no
+JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -120,6 +132,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import glob
 import json
 import os
 import statistics
@@ -143,6 +156,7 @@ from repnerv_tpu_torch.kernels import ssim_blur as sb
 from repnerv_tpu_torch.kernels import train_tail as tt
 from repnerv_tpu_torch.models.embedding import positional_encoding
 from repnerv_tpu_torch.models.generator import Generator, calibrate_int8, param_count
+from repnerv_tpu_torch.utils.profiling import trace
 from repnerv_tpu_torch.train.loop import (
     DECODE_REPS,
     epoch_rows,
@@ -330,39 +344,58 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-# (launches, kernels seen) of every trace of profile_kernels
+# (the wrappers' launches, their kernels' events in the file) of every trace
+# of profile_kernels
 TRACES: list = []
 
 
 def empty_traces() -> int:
-    """The traces that held no kernel at all though the wrappers launched."""
+    """The traces that held none of the launched kernels."""
     return sum(1 for launched, seen in TRACES if launched and not seen)
 
 
-def profile_kernels(fn, reps: int = 5, traces: int = 3):
-    """(the launches the wrappers counted, {kernel name: device us}) over a
-    torch.profiler trace of ``reps`` calls of ``fn()``, after one call
-    outside it.  A trace that holds no kernel at all while the wrappers
-    launched is the profiler's gap: the calls are traced again, ``traces``
-    times at most.  Every trace goes into ``TRACES``."""
-    from torch.profiler import ProfilerActivity, profile
+def short_traces() -> int:
+    """The traces that held fewer of the launched kernels than launched."""
+    return sum(1 for launched, seen in TRACES if seen < launched)
 
+
+def device_us(prof) -> dict:
+    """{kernel name: device us} of a finished torch.profiler session."""
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total}
+
+
+def profile_kernels(fn, fragment: str, reps: int = 5, traces: int = 3):
+    """(the launches the wrappers counted, {kernel name: device us}) over a
+    trace (``utils/profiling.py::trace``) of ``reps`` calls of ``fn()`` that
+    launch one kernel named *fragment* each, after one call outside it.  A
+    trace that holds fewer such kernel events than the wrappers launched
+    (``trace`` itself raises when it holds none) is counted, logged and
+    taken again, ``traces`` times at most (ROADMAP C24).  Every trace goes
+    into ``TRACES``."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(traces):
-        before = sum(launch_counts().values())
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        launched = sum(launch_counts().values()) - before
-        seen = {e.key: getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()}
-        seen = {k: us for k, us in seen.items() if us}
-        TRACES.append((launched, len(seen)))
-        if seen or not launched:
-            break
-        log(f"[profiler] a trace of {reps} calls that launched {launched} held no kernel at all "
-            f"(empty trace {empty_traces()} of {len(TRACES)} in the run): tracing again")
+    launched, seen = reps, {}
+    with tempfile.TemporaryDirectory() as d:
+        for _ in range(traces):
+            try:
+                with trace(d) as rec:
+                    for _ in range(reps):
+                        fn()
+            except RuntimeError as e:
+                TRACES.append((reps, 0))
+                log(f"[profiler] {e} (empty trace {empty_traces()} of {len(TRACES)} in the run): "
+                    "tracing again")
+                continue
+            launched, seen = rec.launched, device_us(rec.profiler)
+            events = sum(n for k, n in rec.kernels.items() if fragment in k.lower())
+            TRACES.append((launched, events))
+            if events >= launched:
+                break
+            log(f"[profiler] a trace of {reps} calls that launched {launched} held {events} "
+                f"*{fragment}* kernel events ({short_traces()} short traces of {len(TRACES)} in "
+                "the run): tracing again")
     return launched, seen
 
 
@@ -373,7 +406,7 @@ def kernel_device_ms(fn, fragment: str, reps: int = 5) -> float:
     the small stages: tens of microseconds) reads the host instead.  It fails
     where the wrappers launched less than once a call (the path) or the
     profiler saw no such kernel (the profiler), and says which."""
-    launched, seen = profile_kernels(fn, reps)
+    launched, seen = profile_kernels(fn, fragment, reps)
     if launched < reps:
         raise AssertionError(f"{reps} calls launched {launched} kernels of K1-K5")
     us = sum(v for k, v in seen.items() if fragment in k.lower())
@@ -882,13 +915,11 @@ OTHER_TOP = 14  # kernels of the "other" group listed by name
 def profile_groups(run, n_iters: int) -> dict:
     """Device time of each kernel group per iteration, from a torch.profiler
     trace of ``n_iters`` calls of ``run(i)``."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as d, trace(d) as rec:
         for i in range(n_iters):
             run(i)
-        torch.cuda.synchronize()
+    prof = rec.profiler
     groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
     groups["other (elementwise, SSIM maps, stem, fusion)"] = 0.0
     total, n_kernels = 0.0, 0
@@ -1499,19 +1530,16 @@ def _covered(intervals: list, merged: list) -> float:
     return total
 
 
-def timeline(run, trace_path: str) -> dict:
-    """torch.profiler timeline of ``run()`` (its chrome trace): device busy
+def timeline(run, trace_dir: str) -> dict:
+    """torch.profiler timeline of ``run()`` (the chrome trace that
+    ``utils/profiling.py::trace`` writes into ``trace_dir``): device busy
     ms (the union of every kernel, copy and set on the card), kernel ms,
     the pinned host-to-device copies' ms and the part of it that lies under
     kernels (the copy engine working while the SMs do)."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(trace_dir) as rec:
         run()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
+    with open(rec.path) as f:
         events = json.load(f)["traceEvents"]
     kernels, copies, other = [], [], []
     for e in events:
@@ -1649,7 +1677,7 @@ def phase_outofcore(tmp: str, path_a_counts: dict) -> dict:
         runs = {False: [], True: []}
         for stream in (False, True, True, False):  # rung 1, rung 2, rung 2, rung 1
             first = not runs[stream]
-            trace = os.path.join(tmp, f"ooc_{dtype}_{int(stream)}.json") if first else ""
+            trace = os.path.join(tmp, f"ooc_{dtype}_{int(stream)}") if first else ""
             runs[stream].append(rung_epoch_ms(stream, cfg, host if stream else device_store,
                                               trace))
             torch.cuda.empty_cache()
@@ -1723,7 +1751,7 @@ def _rung3(tmp: str, host: FrameStore, results: dict) -> dict:
         if rel > GRAPH_TOL[dtype]:
             raise AssertionError(f"{dtype}: rung 3 differs from rung 2 by {rel}")
         del state, fn
-        timing = rung_epoch_ms(True, cfg, disk, os.path.join(tmp, f"ooc_{dtype}_disk.json"))
+        timing = rung_epoch_ms(True, cfg, disk, os.path.join(tmp, f"ooc_{dtype}_disk"))
         log(f"[ooc] {dtype}: rung3 step {timing['ms']:.3f} ms (CUDA events around an epoch of "
             f"{TRAIN_FRAMES} steps, PNG decode on the host included)" + _timeline_text(timing))
         out[dtype] = {"max_rel_loss_diff_vs_rung2": rel, "equal_bits_vs_rung2": torch.equal(got, ref),
@@ -2013,7 +2041,7 @@ def _suite_epoch_timeline(tmp: str, mode: str) -> dict:
         out["profiled_epoch_ms"] = a.elapsed_time(b)
 
     try:
-        out.update(timeline(profiled, os.path.join(tmp, f"suite_{mode}.json")))
+        out.update(timeline(profiled, os.path.join(tmp, f"suite_{mode}")))
     except RuntimeError as e:  # the profiler could not trace the card here
         log(f"[suite] {mode}: timeline not measured ({e})")
     return out
@@ -2103,17 +2131,13 @@ def _mesh_epoch_ms(sharded: bool, cfg: TrainConfig, store: FrameStore, mesh,
     end.synchronize()
     out = {"ms": start.elapsed_time(end) / TRAIN_FRAMES}
     if profile:
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
         torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tempfile.TemporaryDirectory() as d, trace(d) as rec:
             run_fused_epoch(state, fn, store, cfg, 2)
-            torch.cuda.synchronize()
         total = nccl = 0.0
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0.0) or 0.0
+        for key, us in device_us(rec.profiler).items():
             total += us
-            if "nccl" in e.key.lower():
+            if "nccl" in key.lower():
                 nccl += us
         if total:
             out.update(device_ms=total / 1e3 / TRAIN_FRAMES, nccl_ms=nccl / 1e3 / TRAIN_FRAMES)
@@ -2521,8 +2545,6 @@ def tp_rank_main(rank: int, world: int, init_file: str, out_path: str, names: st
     ``make_sharded_epoch_fn`` from the seed's weights (counts, collective
     bytes, losses, the gathered weights), then ms a step of a second epoch
     (CUDA events) and the device ms of two more steps (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     from repnerv_tpu_torch.parallel import collectives, sharding
 
     torch.cuda.set_device(0)
@@ -2576,13 +2598,12 @@ def tp_rank_main(rank: int, world: int, init_file: str, out_path: str, names: st
         host_ms = (time.perf_counter() - t0) * 1e3 / TP_TIME_STEPS
         ms = start.elapsed_time(end) / TP_TIME_STEPS
         torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tempfile.TemporaryDirectory() as d, trace(d) as rec:
             t0 = time.perf_counter()
             state, _ = fn(state, store, epoch_rows(store, cfg, 2)[:2], None)
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t0) * 1e3 / 2
-        events = [(e.key.lower(), getattr(e, "self_device_time_total", 0.0) or 0.0)
-                  for e in prof.key_averages()]
+        events = [(k.lower(), us) for k, us in device_us(rec.profiler).items()]
         device_ms = sum(us for _, us in events) / 1e3 / 2
         # gloo's copies of the collectives' tensors between the card and the host
         copy_ms = sum(us for key, us in events if "memcpy" in key) / 1e3 / 2
@@ -2750,20 +2771,20 @@ def _tp_train_main(tmp: str, smi: str) -> dict:
 
 
 def phase_tp_kernels() -> dict:
-    """Phase 11 (e): K3 / K4 at a model rank's shard shapes, beside phase 5.
-    torch.profiler now and then returns a trace with no kernel at all, in
-    phase 5 as after phase 10, while the wrappers launched
-    (``profile_kernels`` traces again; ``phase_profiler_probe``)."""
+    """Phase 11 (e): K3 / K4 at a model rank's shard shapes, beside phase 5
+    (run there: a bare torch.profiler session lost the kernels of short
+    traces after phase 10, ROADMAP C24)."""
     return stage_train_rows(TP_SHAPES, torch.Generator().manual_seed(SEED + 11), "tp-kernels")
 
 
 def phase_profiler_probe() -> dict:
     """After phase 10: K4 and K5 once more under torch.profiler at phase 11
     (e)'s block-4 shard (f32), and whether the wrappers launched and the
-    profiler saw their kernels.  In an earlier full run (e) ran here and the
-    profiler saw no K4; launches that moved with no kernel seen point at the
-    profiler, launches that did not move at the path (which fails here).
-    ``TRACES`` holds every trace of the run."""
+    profiler saw their kernels (ROADMAP C24: short traces lost them here
+    before ``utils/profiling.py::trace`` primed and padded its window);
+    launches that moved with no kernel seen point at the profiler, launches
+    that did not move at the path (which fails here).  ``TRACES`` holds
+    every trace of the run."""
     g = torch.Generator().manual_seed(SEED + 12)
     dev = torch.device("cuda", 0)
     _, h, w, cin, c, s, _ = TP_SHAPES[-1]
@@ -2779,12 +2800,13 @@ def phase_profiler_probe() -> dict:
               "K5": (lambda: sb.moments_forward(img, img, win), "blur_tiles")}
     out_rows = {}
     for name, (fn, fragment) in probes.items():
-        launched, seen = profile_kernels(fn)
+        launched, seen = profile_kernels(fn, fragment)
         us = sum(v for k, v in seen.items() if fragment in k.lower())
         log(f"[profiler-probe] {name} after phase 10: 5 calls launched {launched}; the profiler "
             f"saw {len(seen)} kernels, *{fragment}* {us / 1e3 / 5:.4f} ms a call on the card"
             + ("" if us else f" (none: it saw {sorted(seen)[:8]})")
-            + f"; {empty_traces()} empty traces of {len(TRACES)} in the run so far")
+            + f"; {empty_traces()} empty and {short_traces()} short traces of {len(TRACES)} "
+            "in the run so far")
         if launched < 5:
             raise AssertionError(f"{name}: 5 calls launched {launched} kernels")
         out_rows[name] = {"launched": launched, "kernels_seen": len(seen),
@@ -2888,6 +2910,125 @@ def phase_quality(tmp: str) -> dict:
     return out
 
 
+# phase 13, train_main --profile: the flagship's first epoch traced (its
+# first PROFILE_STEPS eager steps) and read back from the trace file
+PROFILE_STEPS = 3
+# kernel-name fragments of K3 (the stage forward of blocks 1-4: WMMA / FMA in
+# decode.cu, the wgmma kernels), K4 and K5 in a training step's trace
+PROFILE_KERNELS = {"K3": ("stage_wgmma", "tensor_core::kernel", "cuda_core::kernel"),
+                   "K4": ("epilogue_bwd",), "K5": ("blur_tiles",)}
+PROFILE_TOP = 10  # device ops listed by name
+
+
+class TimedStep:
+    """A train step that records two CUDA events around each call."""
+
+    def __init__(self, step):
+        self.step, self.events = step, []
+
+    def __call__(self, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.step(*args)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+def trace_kernels(path: str) -> dict:
+    """Kernel events of a chrome trace: count and device ms by name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            n, us = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, us + float(e["dur"]))
+    return out
+
+
+def phase_profile(tmp: str, smi: str) -> dict:
+    """Phase 13: train_main --profile on the flagship (bf16, -b 1, 16 720p
+    frames, -e 2): the traced first epoch's launches, and its trace file read
+    back: K3 / K4 / K5 kernel events equal to the launches (4 / 4 / 7 a step),
+    the top device ops; ms of the traced steps beside the untraced eager steps
+    of epoch 2 (CUDA events around each step, the same process)."""
+    made, traced = [], {}
+    real_make, real_trace = train_main.make_train_step, train_main.trace
+
+    def timed_make(*args, **kwargs):
+        made.append(TimedStep(real_make(*args, **kwargs)))
+        return made[-1]
+
+    @contextlib.contextmanager
+    def counted_trace(log_dir, device):
+        before = launch_counts()
+        with real_trace(log_dir, device) as rec:
+            yield rec
+        traced.update(launches={k: v - before[k] for k, v in launch_counts().items()},
+                      launched=rec.launched, path=rec.path)
+
+    argv = TRAIN_ARGV + ["--compute_dtype", "bfloat16", "--profile", "--outf", "profile"]
+    cwd = os.getcwd()
+    os.chdir(tmp)  # train_main writes under result/<outf>
+    train_main.make_train_step, train_main.trace = timed_make, counted_trace
+    try:
+        reset_counts()  # the main path's run starts here
+        t0 = time.perf_counter()
+        res = train_main.main(argv)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()  # ... and ends here
+        outf = os.path.abspath(res["outf"])
+    finally:
+        train_main.make_train_step, train_main.trace = real_make, real_trace
+        os.chdir(cwd)
+    files = sorted(glob.glob(os.path.join(outf, "profile", "*.pt.trace.json")))
+    with open(os.path.join(outf, "rank0.txt")) as f:
+        logged = f.read()
+    if len(files) != 1 or os.path.basename(traced.get("path", "")) != os.path.basename(files[0]):
+        raise AssertionError(f"[profile] trace files {files}, the trace wrote {traced}")
+    if "profiler trace written to" not in logged or [h["epoch"] for h in res["history"]] != [2]:
+        raise AssertionError("[profile] epoch 1 is not the traced epoch alone")
+    steps = PROFILE_STEPS + TRAIN_FRAMES
+    if res["state"].step != steps:
+        raise AssertionError(f"[profile] step counter {res['state'].step}, expected {steps}")
+    kernels = trace_kernels(files[0])
+    in_file = {k: sum(n for name, (n, _) in kernels.items() if any(f in name for f in frags))
+               for k, frags in PROFILE_KERNELS.items()}
+    want = {k: PER_STEP[k] * PROFILE_STEPS for k in PROFILE_KERNELS}
+    launched = {k: traced["launches"][k] for k in PROFILE_KERNELS}
+    whole = {k: PER_STEP[k] * steps + PER_EVAL_FRAME[k] * TRAIN_FRAMES for k in PROFILE_KERNELS}
+    got_whole = {k: counts[k] for k in PROFILE_KERNELS}
+    log(f"[profile] train_main --profile (bf16, -b 1, 720p, -e 2) in {wall:.1f} s; the traced "
+        f"epoch's {PROFILE_STEPS} steps: kernel events in {os.path.basename(files[0])} "
+        f"{in_file}, launches {launched} (expect {want}); the whole run's launches {got_whole} "
+        f"(expect {whole}: {steps} steps, 16 eval frames)")
+    if in_file != want or launched != want or got_whole != whole:
+        raise AssertionError(f"[profile] kernel events {in_file}, launches {launched}, whole run "
+                             f"{got_whole}; expected {want} and {whole}")
+    busy = sum(us for _, us in kernels.values()) / 1e3 / PROFILE_STEPS
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:PROFILE_TOP]
+    log(f"[profile] top device ops of the traced steps (ms a step, events a step): "
+        + "; ".join(f"{us / 1e3 / PROFILE_STEPS:.3f} x{n / PROFILE_STEPS:g} {name[:80]}"
+                    for name, (n, us) in top)
+        + f"; all kernels {busy:.3f} ms a step, {len(kernels)} names")
+    ms = made[0].ms()
+    traced_ms, eager_ms = ms[:PROFILE_STEPS], ms[PROFILE_STEPS:]
+    log(f"[profile] ms a step (CUDA events around each step): traced "
+        + ", ".join(f"{v:.3f}" for v in traced_ms)
+        + f"; untraced eager steps of epoch 2: median {statistics.median(eager_ms):.3f}, "
+        f"min {min(eager_ms):.3f}, max {max(eager_ms):.3f} ({len(eager_ms)} steps); {smi}")
+    return {"launches": launched, "whole_run_launches": got_whole, "kernel_events": in_file,
+            "traced_ms": traced_ms, "eager_ms": eager_ms, "kernel_ms_a_step": busy,
+            "top": [{"kernel": name, "ms": us / 1e3 / PROFILE_STEPS, "events": n}
+                    for name, (n, us) in top],
+            "wall_s": wall, "trace_bytes": os.path.getsize(files[0])}
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -2905,6 +3046,7 @@ def main() -> None:
         probe = phase_profiler_probe()
         tp = phase_tp(tmp, device["smi"], tp_rows)
         quality = phase_quality(tmp)
+        profile = phase_profile(tmp, device["smi"])
     for name in sys.modules:
         if name.split(".")[0] in ("jax", "jaxlib", "repnerv_tpu"):
             raise AssertionError(f"the port imported {name}")
@@ -2968,6 +3110,9 @@ def main() -> None:
             kernels.append({
                 "name": f"{fn}[{dname}]", "route": "cuda", **srcs, "replaces": replaces,
                 "launches": train[dname]["launches"][key],
+                # the traced epoch of train_main --profile (phase 13, bf16)
+                **({"profile_launches": profile["launches"][key]} if dname == "bfloat16"
+                   else {}),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 # blocks 1-4 of one -b 1 flagship training step
                 "ms": sum(r["ms"] for r in rows),
@@ -3006,6 +3151,7 @@ def main() -> None:
         "source": "repnerv_tpu_torch/csrc/ssim_blur.cu",
         "replaces": "repnerv_tpu/pallas_kernels/ssim_blur.py:43",
         "launches": sum(train[d]["launches"]["K5"] for d in ("bfloat16", "float32", "mixed")),
+        "profile_launches": profile["launches"]["K5"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the 7 launches of one training step (the loss's moments and their
         # VJP, the MS-SSIM metric's five levels)
@@ -3068,8 +3214,10 @@ def main() -> None:
     log("[multi] summary " + json.dumps(multi))
     log("[tp] summary " + json.dumps(tp))
     log("[quality] summary " + json.dumps(quality))
+    log("[profile] summary " + json.dumps(profile))
     log("[profiler-probe] summary " + json.dumps(
-        {**probe, "traces": len(TRACES), "empty_traces": empty_traces()}))
+        {**probe, "traces": len(TRACES), "empty_traces": empty_traces(),
+         "short_traces": short_traces()}))
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])
     print(json.dumps(
@@ -3082,6 +3230,12 @@ if __name__ == "__main__":
         gloo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     elif sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 11, started by _spawn_tp
         tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--profile"]:  # phases 1, 2 and 13 alone
+        device = phase_device()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            log("[profile] summary " + json.dumps(phase_profile(tmp, device["smi"])))
+        print(device["smi"])
     elif sys.argv[1:2] == ["--quality"]:  # phases 1, 2 and 12 alone
         device = phase_device()
         phase_build()

@@ -39,7 +39,14 @@ model gathered once per evaluation.
 ``-e`` schedule and stops with a checkpoint: the learning rates are those of
 the whole run, so epoch N's PSNR is the whole run's at N.
 
-Refused: ``--profile`` (the JAX profiler).
+``--profile`` (its help says "JAX profiler", the JAX package's words kept)
+trains the whole run through the eager step, as the JAX package does, and
+traces the first epoch's first 3 steps (10 with ``--debug``) with
+``torch.profiler`` (``utils/profiling.py::trace``) into
+``<outf>/profile/<host>_<pid>[_rank<r>].<ns>.pt.trace.json``, one file a
+rank, which TensorBoard's profiler plugin or ``chrome://tracing`` reads; that
+epoch gets no epoch line, evaluation or checkpoint.  On the card the trace
+fails the run if the kernels launched and it holds none.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from ..train.loop import (
 )
 from ..train.recovery import DivergenceGuard, snapshot
 from ..utils.costs import generator_macs
+from ..utils.profiling import trace
 from .args import args_to_config, build_parser, exp_id
 
 
@@ -176,7 +184,7 @@ def _train(cfg: TrainConfig, device: torch.device, mesh, stop_epoch: int) -> dic
             pass
 
     with_msssim = min(store.hw) > 160
-    fused = cfg.fused_epoch
+    fused = cfg.fused_epoch and not cfg.profile
     if mesh is not None:
         if fused and not store.resident:
             # the streaming epoch is not sharded: a host video gathers per step
@@ -231,6 +239,14 @@ def _train(cfg: TrainConfig, device: torch.device, mesh, stop_epoch: int) -> dic
 
     for epoch in range(start_epoch, min(stop_epoch, cfg.epochs)):
         ep_start = datetime.now()
+        if cfg.profile and epoch == start_epoch:
+            # as the JAX package: the first epoch's first steps under the
+            # profiler, and no guard, history, epoch line, eval or checkpoint
+            with trace(os.path.join(outf, "profile"), device):
+                state, _ = run_epoch(state, train_step, store, cfg, epoch,
+                                     max_steps=max_steps if max_steps is not None else 3)
+            log(outf, 0, f"profiler trace written to {outf}/profile")
+            continue
         state, m = run(state, train_step, store, cfg, epoch, max_steps=max_steps)
         state, _ = guard.observe(epoch, float(m.psnr[-1]), state)
         history.append({"epoch": epoch + 1, "loss": m.loss, "lr": m.lr,
@@ -339,14 +355,12 @@ def _train(cfg: TrainConfig, device: torch.device, mesh, stop_epoch: int) -> dic
 
 
 def _refusal(a) -> str:
-    """What the port does not do, or what the flags need: checked before
+    """What the flags need that the process does not have: checked before
     anything is written."""
     n = int(np.prod(a.mesh_shape)) if a.mesh_shape else 1
     if n > 1 and sharding.torchrun_env() is None and not torch.distributed.is_initialized():
         return (f"--mesh_shape {' '.join(map(str, a.mesh_shape))} needs {n} processes: "
                 f"torchrun --nproc_per_node {n} -m repnerv_tpu_torch.cli.train_main ...")
-    if a.profile:
-        return "--profile is the JAX profiler's and is not ported"
     return ""
 
 

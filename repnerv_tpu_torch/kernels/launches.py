@@ -48,6 +48,12 @@ def since(before: Counts) -> Counts:
             for k, v in now.items()}
 
 
+def total(counts: Counts) -> int:
+    """The K1-K5 launches in ``counts`` (the by-route dicts split the same
+    launches again)."""
+    return sum(v for v in counts.values() if isinstance(v, int))
+
+
 def add(counts: Counts, times: int = 1) -> None:
     """Add ``times`` x ``counts`` to the wrappers' counts."""
     for mod, name in _COUNTERS:

@@ -46,6 +46,7 @@ from ..models.embedding import positional_encoding
 from ..models.generator import Generator, calibrate_int8, generator_to_deploy
 from ..parallel import sharding
 from ..train.loop import DECODE_REPS, decode_time_batches, decode_video, measure_decode_fps
+from ..utils.profiling import trace
 
 FRAMES, BATCH = 32, 8
 REPS = 20  # timed windows a variant a turn
@@ -63,20 +64,20 @@ def window_ms(fn) -> float:
 
 
 def timeline(fn, path: str, reps: int = 3) -> dict:
-    """torch.profiler's chrome trace of ``reps`` windows of ``fn()``, read
-    per window (the host span of each call, from its record_function
-    range): device busy ms, the gaps between device work over ``GAP_US``
-    and the host events inside them, the device work by stream."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """torch.profiler's chrome trace (``utils/profiling.py::trace`` into
+    the directory ``path``) of ``reps`` windows of ``fn()``, read per window
+    (the host span of each call, from its record_function range): device
+    busy ms, the gaps between device work over ``GAP_US`` and the host
+    events inside them, the device work by stream."""
+    from torch.profiler import record_function
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(path, "cuda") as rec:
         for i in range(reps):
             with record_function(f"window{i}"):
                 fn()
             torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
-    with open(path) as f:
+    with open(rec.path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver",
@@ -198,7 +199,7 @@ def main(argv=None) -> dict:
                 res.setdefault(turn, []).extend(times(variants[turn]))
             for v in ("plain", "collective"):
                 res[f"timeline_{v}"] = timeline(variants[v],
-                                                os.path.join(traces, f"{name}_{v}.json"))
+                                                os.path.join(traces, f"{name}_{v}"))
         finally:
             sharding.close_mesh(mesh)
         mesh = sharding.make_mesh((1,), ("data",), "cuda")
@@ -206,7 +207,7 @@ def main(argv=None) -> dict:
             run = sharding.make_sharded_video_decode_fn(cfg, mesh)
             run(model, t_mat)  # the communicator starts here
             res["timeline_collective_fresh"] = timeline(
-                lambda: run(model, t_mat), os.path.join(traces, f"{name}_fresh.json"))
+                lambda: run(model, t_mat), os.path.join(traces, f"{name}_fresh"))
         finally:
             sharding.close_mesh(mesh)
         for v in ("plain_no_world", "plain", "collective", "local"):

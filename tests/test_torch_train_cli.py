@@ -78,7 +78,6 @@ def test_train_cli_logs_checkpoints_deploys_and_resumes(tmp_path, monkeypatch):
     "extra,row",
     [
         (["--mesh_shape", "2"], "torchrun --nproc_per_node 2"),
-        (["--profile"], "profiler"),
     ],
 )
 def test_train_cli_refuses_later_slices(tmp_path, monkeypatch, capsys, extra, row):
