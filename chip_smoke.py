@@ -26,8 +26,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                route, the time (f32: and the error) of the kernel the shape
                ran before, the FMA or the WMMA kernel, in the same run
   4. serve   — flagship ERB generator from seed 0 -> 8-bit .rnvb -> decode_main
-               (32 frames, batch 8) in f32 and bf16; launch count, frames vs
-               the plain path, fps of both paths
+               (32 frames, batch 8; one CUDA graph replay a batch) in f32 and
+               bf16; launch count, frames vs the plain path, fps of both
+               paths; ``[serve-graph]`` lines: the graph decode vs the eager
+               one (decode_video): frames to the bit, K1 launches a replayed
+               batch by route, a recapture after a weight changed in place,
+               then in turns (eager, graph, graph, eager) fps, the decode
+               window's idle share (torch.profiler) and batch-1 latency
   5. train-kernels — K3 (training stage forward) and K4 (its epilogue
                backward, with the bias and head gradients it sums itself:
                values, and equal bits from two launches) at the four fused
@@ -55,7 +60,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                finetune epoch), QAT (1 epoch); then decode_main --decode_int8
                serves the .rnvb: 2 K1 + 2 K2 launches per batch (both K2 on
                the wgmma route), frames vs the plain path, fps of the int8,
-               bf16 and plain paths
+               bf16 and plain paths; the int8 ``[serve-graph]`` lines (as
+               phase 4's, the recapture after its packed scale changed)
   9. out-of-core — the flagship trained from its 16 frames in pinned host
                memory (rung 2: --hbm_budget_mb 1, 16 MiB chunks of 6, 6 and
                4 steps copied on a side stream under the graph's replays) vs
@@ -152,6 +158,7 @@ from repnerv_tpu_torch.data.frames import DirFrames, FrameStore, make_frame_stor
 from repnerv_tpu_torch.kernels import build
 from repnerv_tpu_torch.kernels import decode as dk
 from repnerv_tpu_torch.kernels import decode_int8 as k8
+from repnerv_tpu_torch.kernels import launches as kernel_launches
 from repnerv_tpu_torch.kernels import ssim_blur as sb
 from repnerv_tpu_torch.kernels import train_tail as tt
 from repnerv_tpu_torch.models.embedding import positional_encoding
@@ -159,16 +166,21 @@ from repnerv_tpu_torch.models.generator import Generator, calibrate_int8, param_
 from repnerv_tpu_torch.utils.profiling import trace
 from repnerv_tpu_torch.train.loop import (
     DECODE_REPS,
+    decode_batch,
+    decode_time_batches,
+    decode_video,
     epoch_rows,
     init_train_state,
     make_decode_fn,
     make_epoch_fn,
     make_streaming_epoch_fn,
     make_train_step,
+    make_video_decode_fn,
     measure_decode_fps,
     run_epoch,
     run_fused_epoch,
     stream_chunk_steps,
+    time_decode,
 )
 
 SEED = 0
@@ -576,6 +588,8 @@ def phase_serve(tmp: str) -> dict:
         reset_counts()  # the main path's run starts here
         res = decode_main.main([path, "--frames", str(SERVE_FRAMES), "--batch", str(SERVE_BATCH)])
         launches, routes = dk.LAUNCHES, dict(dk.ROUTE_LAUNCHES)  # ... and ends here
+        # the kernels that ran: the warm-up decode's eager first batch and its
+        # replays, then a replay a batch of each timed rep (the capture ran none)
         passes = n_batches * (1 + DECODE_REPS)
         expected = 4 * passes
         # blocks 2-4 (Cin 96) on the type's wgmma kernel, block 1 (Cin 26) on WMMA / FMA
@@ -620,7 +634,7 @@ def phase_serve(tmp: str) -> dict:
         out[dtype] = {
             "launches": launches, "route_launches": routes, "fps": res["fps"],
             "plain_fps": plain_fps, "batch_ms": 1e3 * SERVE_BATCH / res["fps"],
-            "breakdown": decode_breakdown(model, t),
+            "graph_vs_eager": serve_graph_vs_eager(model, dtype),
             "frames_max_abs_err": err, "frames_mean_abs_err": mean_err,
         }
         del model, plain
@@ -963,27 +977,166 @@ def step_breakdown(dtype: str, use_kernel: bool, store: FrameStore, n_steps: int
     return profile_groups(run, n_steps)
 
 
-def decode_breakdown(model, t: torch.Tensor, n_batches: int = 3) -> dict:
-    """``profile_groups`` of ``n_batches`` decoded batches, and the device's
-    idle share of a batch (CUDA-event time of the same batches, unprofiled).
-    Empty when the profiler cannot trace the card."""
-    decode = make_decode_fn(TrainConfig(model=model.cfg))
-    decode(model, t)
+def decode_breakdown(decode_all, model, t_mat: torch.Tensor, label: str,
+                     n_windows: int = 2) -> dict:
+    """``profile_groups`` of ``n_windows`` decode windows (``decode_all(model,
+    t_mat)``: the 32 frames of a throughput rep), the device's idle share
+    of a window: 1 - device ms / the window's CUDA-event ms (unprofiled),
+    and one more window's ``timeline``: its busy ms over the span from its
+    first device event to its last (the card's own gaps, without the host's
+    time before the first launch).  Empty when the profiler cannot trace
+    the card."""
+    decode_all(model, t_mat)
     try:
-        bd = profile_groups(lambda i: decode(model, t), n_batches)
+        bd = profile_groups(lambda i: decode_all(model, t_mat), n_windows)
     except RuntimeError as e:
-        log(f"[serve] decode breakdown not measured ({e})")
+        log(f"[serve] {label}: decode breakdown not measured ({e})")
         return {}
     if not bd["device_ms"]:
-        log("[serve] decode breakdown not measured (no device time)")
+        log(f"[serve] {label}: decode breakdown not measured (no device time)")
         return {}
-    bd["batch_ms"] = cuda_ms(lambda: decode(model, t))
-    bd["idle_share"] = max(0.0, 1 - bd["device_ms"] / bd["batch_ms"])
+    bd["window_ms"] = cuda_ms(lambda: decode_all(model, t_mat))
+    bd["idle_share"] = max(0.0, 1 - bd["device_ms"] / bd["window_ms"])
+    with tempfile.TemporaryDirectory() as d:
+        tl = timeline(lambda: decode_all(model, t_mat), d)
+    bd["timeline"] = tl
+    bd["span_idle_share"] = 1 - tl["busy_ms"] / tl["span_ms"]
+    gap_us = 1e3 * (tl["span_ms"] - tl["busy_ms"]) / max(tl["kernels"] - 1, 1)
     parts = ", ".join(f"{k} {v:.3f}" for k, v in bd["groups_ms"].items())
-    log(f"[serve] {model.cfg.compute_dtype}: one batch of {t.numel()} frames, device ms from "
-        f"torch.profiler: {parts}; device total {bd['device_ms']:.3f} of {bd['batch_ms']:.3f} ms "
-        f"(idle share {bd['idle_share']:.3f}); {bd['kernels_per_step']:.0f} kernels per batch")
+    log(f"[serve] {label}: a window of {t_mat.numel()} frames, device ms from torch.profiler: "
+        f"{parts}; device total {bd['device_ms']:.3f} of {bd['window_ms']:.3f} ms (idle share "
+        f"{bd['idle_share']:.3f}); {bd['kernels_per_step']:.0f} kernels a window; timeline of "
+        f"one window: busy {tl['busy_ms']:.3f} of its {tl['span_ms']:.3f} ms span (idle "
+        f"{bd['span_idle_share']:.3f}, {gap_us:.2f} us a gap between {tl['kernels']} kernels)")
     return bd
+
+
+def single_frame_ms(decode, t_one: torch.Tensor, warmup: int = 5, reps: int = 50) -> float:
+    """ms a one-frame decode, each ended by a synchronize after ``warmup``
+    decodes (``eval_main.measure_micro_fps``'s protocol)."""
+    for _ in range(warmup):
+        decode(t_one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        decode(t_one)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _k12_routes(counts) -> dict:
+    """{"K1": {route: n}, "K2": {route: n}} of a ``launches`` record, used routes only."""
+    out = {}
+    for key, mod in (("K1", "decode"), ("K2", "decode_int8")):
+        routes = counts[f"repnerv_tpu_torch.kernels.{mod}", "ROUTE_LAUNCHES"]
+        out[key] = {r: n for r, n in routes.items() if n}
+    return out
+
+
+def _per_batch(routes: dict, n: int) -> dict:
+    return {k: {r: v / n for r, v in d.items()} for k, d in routes.items()}
+
+
+def serve_graph_vs_eager(model, name: str) -> dict:
+    """The graph decode (``make_video_decode_fn``: one CUDA graph replay a
+    batch) against the eager one (``decode_video``) on ``model``: frames to
+    the bit (cuDNN deterministic), K1 / K2 launches a replayed batch by
+    route against an eager batch's, a recapture after a change in place
+    (the last block's weight, or under int8 its packed scale) against the eager
+    decode of the new weights; then in turns (eager, graph, graph, eager)
+    fps of the 32 frames at batch 8 (``time_decode``: the fastest of 3 reps
+    after a warm-up), the device's idle share in the decode window
+    (torch.profiler through ``trace``, the first turn of each path) and the
+    batch-1 latency."""
+    cfg = TrainConfig(model=model.cfg)
+    dev = torch.device("cuda", 0)
+    t_mat = torch.from_numpy(decode_time_batches(np.arange(SERVE_FRAMES) / SERVE_FRAMES,
+                                                 SERVE_BATCH)).to(dev)
+    n_batches = t_mat.shape[0]
+    saved = _deterministic(True)
+    try:
+        before = kernel_launches.snapshot()
+        decode_video(model, cfg, t_mat[:1])
+        eager_batch = _k12_routes(kernel_launches.since(before))
+        eager = decode_video(model, cfg, t_mat)
+        run = make_video_decode_fn(cfg)
+        first = run(model, t_mat)  # the eager first batch, the capture, 3 replays
+        before = kernel_launches.snapshot()
+        again = run(model, t_mat)  # replays only
+        replay_batch = _per_batch(_k12_routes(kernel_launches.since(before)), n_batches)
+        equal = [torch.equal(first, eager), torch.equal(again, eager)]
+        del first, again
+        # a change in place of what the last block's kernel reads (its weight,
+        # or under int8 its table's packed scale): the key moves, the next
+        # decode captures again
+        q = model.int8.get(str(len(model.layers) - 1))
+        w = model.layers[-1].rbr_reparam.weight if q is None else q.packed.scale
+        kept = w.detach().clone()
+        with torch.no_grad():
+            w.mul_(1.25)
+        changed = run(model, t_mat)
+        recapture_equal = torch.equal(changed, decode_video(model, cfg, t_mat))
+        moved = not torch.equal(changed, eager)
+        captures = run.captures
+        with torch.no_grad():
+            w.copy_(kept)
+        del run, changed, eager
+    finally:
+        _deterministic(saved)
+    log(f"[serve-graph] {name}: graph frames vs eager frames equal bits {equal} (two calls of one "
+        f"decode, {n_batches} batches of {SERVE_BATCH}); launches an eager batch {eager_batch}, "
+        f"a replayed batch {replay_batch}; after a change in place of the last block's "
+        f"{'int8 scale' if q is not None else 'weight'}: {captures} captures, frames equal to the "
+        f"eager decode of the new weights {recapture_equal} (moved {moved})")
+    if not all(equal):
+        raise AssertionError(f"{name}: the graph decode's frames differ from the eager decode's")
+    if replay_batch != _per_batch(eager_batch, 1):
+        raise AssertionError(f"{name}: a replayed batch counted {replay_batch}, an eager batch "
+                             f"launched {eager_batch}")
+    if captures != 2 or not recapture_equal or not moved:
+        raise AssertionError(f"{name}: after a change in place: {captures} captures, equal to "
+                             f"the eager decode {recapture_equal}, moved {moved}")
+
+    def eager_all(m, t):
+        return decode_video(m, cfg, t, keep_frames=False)
+
+    one = make_decode_fn(cfg)
+    turns = {"eager": [], "graph": []}
+    for path in ("eager", "graph", "graph", "eager"):
+        decode_all = eager_all if path == "eager" else make_video_decode_fn(cfg, keep_frames=False)
+        times, sums = time_decode(decode_all, model, t_mat)
+        single = (single_frame_ms(lambda t: decode_batch(model, cfg, t), t_mat[0, :1])
+                  if path == "eager" else single_frame_ms(lambda t: one(model, t), t_mat[0, :1]))
+        row = {"fps": t_mat.numel() / min(times), "window_ms": 1e3 * min(times),
+               "single_frame_ms": single}
+        if not turns[path]:
+            row["profile"] = decode_breakdown(decode_all, model, t_mat, f"{name} {path}")
+        turns[path].append(row)
+        if not bool(torch.isfinite(sums).all()):
+            raise AssertionError(f"{name} {path}: non-finite checksums")
+        del decode_all
+        torch.cuda.empty_cache()
+    res = {"frames_equal_bits": all(equal), "recapture_equal_bits": recapture_equal,
+           "eager_batch_launches": eager_batch, "replay_batch_launches": replay_batch}
+    for path, rows in turns.items():
+        prof = rows[0]["profile"]
+        res[path] = {"fps": statistics.mean(r["fps"] for r in rows),
+                     "fps_runs": [r["fps"] for r in rows],
+                     "single_frame_ms": statistics.mean(r["single_frame_ms"] for r in rows),
+                     "single_frame_ms_runs": [r["single_frame_ms"] for r in rows],
+                     "idle_share": prof.get("idle_share"), "device_ms": prof.get("device_ms"),
+                     "span_idle_share": prof.get("span_idle_share"), "profile": prof}
+        idle = ("not measured" if prof.get("idle_share") is None
+                else f"{prof['idle_share']:.4f} ({prof['device_ms']:.3f} device ms of "
+                     f"{prof['window_ms']:.3f})")
+        log(f"[serve-graph] {name} {path}: fps {res[path]['fps']:.2f} ("
+            + ", ".join(f"{x:.2f}" for x in res[path]["fps_runs"])
+            + f"; {SERVE_FRAMES} frames at batch {SERVE_BATCH}, fastest of {DECODE_REPS} reps); "
+            f"idle share of the decode window {idle}; batch-1 latency "
+            f"{res[path]['single_frame_ms']:.4f} ms ("
+            + ", ".join(f"{x:.4f}" for x in res[path]["single_frame_ms_runs"]) + ")")
+    res["graph_over_eager_fps"] = res["graph"]["fps"] / res["eager"]["fps"]
+    return res
 
 
 def phase_train(tmp: str) -> dict:
@@ -1497,6 +1650,7 @@ def phase_compress(tmp: str) -> dict:
         "bf16_fps": bf16_fps, "plain_fps": plain_fps,
         "frames_max_abs_err": err, "frames_mean_abs_err": mean_err,
         "compute_dtype": base.cfg.compute_dtype,
+        "graph_vs_eager": serve_graph_vs_eager(model, "int8"),
     }
     del base, model, plain, frames, ref, diff
     torch.cuda.empty_cache()
@@ -1533,8 +1687,9 @@ def _covered(intervals: list, merged: list) -> float:
 def timeline(run, trace_dir: str) -> dict:
     """torch.profiler timeline of ``run()`` (the chrome trace that
     ``utils/profiling.py::trace`` writes into ``trace_dir``): device busy
-    ms (the union of every kernel, copy and set on the card), kernel ms,
-    the pinned host-to-device copies' ms and the part of it that lies under
+    ms (the union of every kernel, copy and set on the card), the span from
+    the first such event's start to the last one's end, kernel ms, the
+    pinned host-to-device copies' ms and the part of it that lies under
     kernels (the copy engine working while the SMs do)."""
     torch.cuda.synchronize()
     with trace(trace_dir) as rec:
@@ -1559,6 +1714,7 @@ def timeline(run, trace_dir: str) -> dict:
     busy = _merged(kernels + copies + other)
     copy_us = sum(b - a for a, b in copies)
     return {"busy_ms": sum(b - a for a, b in busy) / 1e3,
+            "span_ms": (busy[-1][1] - busy[0][0]) / 1e3, "kernels": len(kernels),
             "kernel_ms": sum(b - a for a, b in k_merged) / 1e3,
             "kernel_sum_ms": sum(b - a for a, b in kernels) / 1e3,
             "copies": len(copies), "copy_ms": copy_us / 1e3,
@@ -2420,7 +2576,8 @@ def _accumulated_steps(cfg: TrainConfig, store: FrameStore, rows: np.ndarray) ->
 
 def phase_mesh_decode(rnvb: str) -> dict:
     """(e) decode_main --mesh_shape 1 on phase 8's .rnvb, bf16 and int8:
-    frames of the sharded decode equal the plain decode's to the bit;
+    frames of the sharded graph decode equal the plain graph decode's and
+    the eager batch's to the bit;
     launches per batch; fps beside the run without the flag, in turns."""
     from repnerv_tpu_torch.parallel import sharding
 
@@ -2464,26 +2621,33 @@ def phase_mesh_decode(rnvb: str) -> dict:
             model = calibrate_int8(model, positional_encoding(calib, model.cfg.embed))
         cfg = TrainConfig(model=model.cfg)
         mesh = sharding.make_mesh((1,), ("data",), "cuda")
+        saved = _deterministic(True)
         try:
+            # both one graph replay a batch; the eager batch beside them
             plain, shard = make_decode_fn(cfg), sharding.make_sharded_decode(cfg, mesh)
-            equal = []
+            equal, equal_eager = [], []
             for i in range(n_batches):
                 t = torch.arange(i * SERVE_BATCH, (i + 1) * SERVE_BATCH, dtype=torch.float32,
                                  device=dev) / SERVE_FRAMES
-                equal.append(torch.equal(plain(model, t), shard(model, t)))
+                got = shard(model, t)
+                equal.append(torch.equal(plain(model, t), got))
+                equal_eager.append(torch.equal(decode_batch(model, cfg, t), got))
         finally:
+            _deterministic(saved)
             sharding.close_mesh(mesh)
-        res = {"frames_equal_bits": all(equal), "launches_per_batch": per_batch,
+        res = {"frames_equal_bits": all(equal), "eager_frames_equal_bits": all(equal_eager),
+               "launches_per_batch": per_batch,
                "fps": statistics.mean(fps[False]), "fps_runs": fps[False],
                "mesh1_fps": statistics.mean(fps[True]), "mesh1_fps_runs": fps[True],
                "group_alive_fps_runs": group_fps}
         log(f"[mesh] decode {name}: {SERVE_FRAMES} frames, batch {SERVE_BATCH}: --mesh_shape 1 "
-            f"frames vs the plain decode equal bits {equal}; launches {per_batch} a batch on "
+            f"graph frames vs the plain graph decode equal bits {equal}, vs the eager batch "
+            f"{equal_eager}; launches {per_batch} a batch on "
             f"both; fps {res['mesh1_fps']:.2f} ({', '.join(f'{x:.2f}' for x in fps[True])}) with "
             f"the flag, {res['fps']:.2f} ({', '.join(f'{x:.2f}' for x in fps[False])}) without "
             f"(decode_main, in turns), then without the flag but with an NCCL world of one alive "
             f"in the process {', '.join(f'{x:.2f}' for x in group_fps)}")
-        if not all(equal):
+        if not all(equal) or not all(equal_eager):
             raise AssertionError(f"{name}: the sharded decode's frames differ from the plain ones")
         results[name] = res
         del model

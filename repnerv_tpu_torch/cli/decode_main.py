@@ -6,9 +6,10 @@ of ``repnerv_tpu/cli/decode_main.py``).
 
 Frame timestamps follow the training convention t_i = i/N.  Without
 ``--out`` it measures decode throughput on the card (CUDA events); with
-``--out`` it writes pred_{i}.png, on any device.  ``--decode_int8`` runs the
-trailing blocks through the int8 stage, calibrated on the first
-``min(8, N)`` frames.
+``--out`` it writes pred_{i}.png, on any device.  On the card a batch's
+decode is one CUDA graph replay (``train/loop.py::make_video_decode_fn``).
+``--decode_int8`` runs the trailing blocks through the int8 stage,
+calibrated on the first ``min(8, N)`` frames.
 
 ``--mesh_shape N`` decodes over the N ranks of a ``torch.distributed``
 world (``torchrun --nproc_per_node N``; N = 1 needs no torchrun): the batch
@@ -144,6 +145,7 @@ def _decode(a, device: torch.device, mesh, parser) -> dict:
             os.makedirs(a.out, exist_ok=True)
         decode = make_decode_fn(cfg) if mesh is None else sharding.make_sharded_decode(cfg, mesh)
         t0 = time.perf_counter()
+        # the last chunk is padded to bsz, so one graph decodes every chunk
         for i0 in range(0, n, bsz):
             chunk = t_all[i0 : i0 + bsz]
             t = torch.from_numpy(np.pad(chunk, (0, bsz - len(chunk)), mode="edge")).to(device)

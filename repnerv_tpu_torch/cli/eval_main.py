@@ -83,9 +83,11 @@ def load_model(path: str, load_cfg, device) -> tuple:
 def measure_micro_fps(model: Generator, cfg: TrainConfig, t_one: torch.Tensor,
                       warmup: int = 5, reps: int = 50) -> float:
     """Single-frame decode rate on the card (reference main_eval.py:767-784:
-    5 warm-up and 50 timed one-frame forwards), each ended by a
-    synchronize: a latency surface, where ``measure_decode_fps`` is the
-    throughput one.  Without a card it fails instead of timing the CPU."""
+    5 warm-up and 50 timed one-frame decodes), each ended by a synchronize:
+    a latency surface, where ``measure_decode_fps`` is the throughput one.
+    The decode is ``make_decode_fn``'s: the first warm-up call runs eagerly
+    and captures the one-frame graph, every timed call is one replay.
+    Without a card it fails instead of timing the CPU."""
     if t_one.device.type != "cuda":
         raise RuntimeError(f"decode fps is measured on a CUDA device, not {t_one.device}")
     decode = make_decode_fn(cfg)
@@ -186,7 +188,8 @@ def run_eval(cfg: TrainConfig, device="cuda") -> dict:
         vis = os.path.join(outf, "visualize")
         os.makedirs(vis, exist_ok=True)
         print(f"Saving predictions to {vis}")
-        # every val frame, batched, global indices pred_{i*B+b}.png
+        # every val frame, batched, global indices pred_{i*B+b}.png; the last
+        # chunk is padded to bsz, so one graph decodes every chunk
         decode = make_decode_fn(eval_cfg)
         for i0 in range(0, len(rows), bsz):
             chunk = rows[i0 : i0 + bsz]

@@ -31,10 +31,12 @@ the whole model.
   whole batch, the gradients are equal, and the result is the single-rank
   step's, as JAX's single-process replication (``local_batch``).
 * **Decode** (``make_sharded_video_decode_fn``): each rank decodes its
-  columns of every batch; the checksum's sum is the one collective, and
-  kept frames are gathered.  A timed decode (``train/loop.py::
-  measure_decode_fps``) keeps the checksums on the rank and reduces them,
-  with the reps' times, once after its loop (``reduce_decode_reps``).
+  columns of every batch through ``make_video_decode_fn`` (on the card one
+  CUDA graph replay a batch); the checksum's sum is the one collective, run
+  outside the graph, and kept frames are gathered.  A timed decode
+  (``train/loop.py::measure_decode_fps``) keeps the checksums on the rank
+  and reduces them, with the reps' times, once after its loop
+  (``reduce_decode_reps``).
 * **Tensor parallelism** over a ``"model"`` axis (``make_mesh((D, M),
   ("data", "model"))``, rank ``r = d * M + m`` as JAX's row-major device
   grid): ``params_specs`` splits the leaves JAX's does, ``shard_train_state``
@@ -78,9 +80,9 @@ from ..train.loop import (
     _schedule,
     _StepBuffers,
     apply_update,
-    decode_video,
     init_train_state,
     make_optimizer_like,
+    make_video_decode_fn,
 )
 from ..train.schedule import lr_at_step
 from .tensor_parallel import divides
@@ -608,19 +610,21 @@ def make_sharded_video_decode_fn(cfg: TrainConfig, mesh: Mesh, *, keep_frames: b
                                  local: bool = False):
     """``run(model, t_batches [n_batches, B])``: each rank decodes its
     columns of every batch (B must divide by the data axis) with the whole
-    ``model``.  Returns the per-batch checksums [n_batches], summed over the
-    data group (the one collective), or with ``keep_frames`` the frames
+    ``model``, through one ``make_video_decode_fn`` that lives as long as
+    ``run`` (on the card: a CUDA graph replay a batch).  Returns the
+    per-batch checksums [n_batches], summed over the data group (the one
+    collective, outside the graph), or with ``keep_frames`` the frames
     [n_batches, B, H, W, 3] gathered from it.  With ``local`` it stops
     before the collective: this rank's checksums (or frames), on its own
     stream, for ``reduce_decode_reps`` to sum once after a timed loop."""
     n_dev = mesh.data_size
+    decode = make_video_decode_fn(cfg, keep_frames=keep_frames)
 
     def run(model, t_batches: torch.Tensor) -> torch.Tensor:
         n, b = t_batches.shape
         if b % n_dev:
             raise ValueError(f"decode batch {b} does not divide by the data axis ({n_dev})")
-        ys = decode_video(model, cfg, t_batches[:, process_local_slice(b, mesh)],
-                          keep_frames=keep_frames)
+        ys = decode(model, t_batches[:, process_local_slice(b, mesh)])
         if local:
             return ys
         if not keep_frames:
@@ -649,7 +653,7 @@ def reduce_decode_reps(times: Sequence[float], checksums: torch.Tensor, mesh: Me
 
 def make_sharded_decode(cfg: TrainConfig, mesh: Mesh):
     """``decode(model, t [B]) -> frames [B, H, W, 3]``, each rank rendering
-    its frames of the batch, gathered."""
+    its frames of the batch (one graph replay a call on the card), gathered."""
     run = make_sharded_video_decode_fn(cfg, mesh, keep_frames=True)
 
     def decode(model, t: torch.Tensor) -> torch.Tensor:

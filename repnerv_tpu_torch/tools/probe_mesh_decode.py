@@ -6,8 +6,9 @@ The flagship ERB generator (720p, deployed, seed 0) decodes 32 frames in
 batches of 8, as ``chip_smoke.py``'s ``[mesh]`` turns, in bf16 and in int8,
 in one process.  Three forms of the timed decode:
 
-* ``plain``: ``decode_video``'s checksums (``measure_decode_fps`` without a
-  mesh);
+* ``plain``: ``decode_video``'s checksums, the eager decode (in the fresh
+  turns ``measure_decode_fps`` without a mesh, which replays the decode's
+  CUDA graph);
 * ``collective``: the sharded decode as it was timed before: this rank's
   checksums and one ``all_reduce`` of them inside each window, after a
   warm-up decode whose all-reduce starts NCCL's communicator;

@@ -27,12 +27,17 @@ fetch of the stacked metrics at the end of the epoch:
   ``_capture_graphs`` / ``_replay`` hooks), and ``parallel/suite.py`` runs one
   ``FusedEpoch`` per video, each on its own stream.
 
-Decoding runs one batch per call; throughput is timed with CUDA events on
+Decoding (``make_video_decode_fn``, ``make_decode_fn``) is the JAX
+package's one ``lax.scan`` dispatch per video: on the card a batch's decode
+is captured once as a CUDA graph on fixed buffers and replayed once per
+batch (``VideoDecode``); ``decode_video``, the eager loop of batches, is its
+oracle and what runs on the CPU.  Throughput is timed with CUDA events on
 the card, and a measurement without a card fails rather than timing the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 from dataclasses import dataclass
 from functools import partial
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import TrainConfig, head_plan
+from ..config import TrainConfig, head_plan, output_hw
 from ..data.frames import FrameStore, adaptive_avg_pool, read_frames
 from ..kernels import launches
 from ..models.embedding import positional_encoding
@@ -267,6 +272,42 @@ def run_epoch(
                                  torch.stack(msssims) if msssims else None, lr)
 
 
+def capture_after_eager(device: torch.device, eager: Callable[[], None],
+                        capture: Callable[[torch.cuda.Stream], object]):
+    """Run ``eager()`` on a new side stream of ``device``, then
+    ``capture(side)``, which captures its CUDA graphs on that stream, with
+    cyclic collection held off.  Returns (what ``capture`` returned, the
+    kernel launches of one replay).
+
+    The eager run builds the kernels and fills every cache a capture must
+    find full (packed weights, PE factors, cuDNN's and cuBLAS's plans).  Each
+    capture has a stream of its own, not torch's one default capture stream:
+    cuBLAS keeps one workspace per stream, which a graph then holds, and two
+    graphs captured on one stream and replayed side by side (the parallel
+    suite) would share it.  The capture runs no kernel: its launch counts are
+    taken back here, and the caller adds them at every replay
+    (``kernels/launches.py``)."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        eager()
+    torch.cuda.current_stream(device).wait_stream(side)
+    before = launches.snapshot()
+    # no cyclic collection inside the capture: freeing pinned memory that
+    # a copy used makes the host allocator record and query CUDA events,
+    # which invalidates a capture (torch.cuda.graph collects first)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        captured = capture(side)
+    finally:
+        if collecting:
+            gc.enable()
+    counts = launches.since(before)
+    launches.add(counts, -1)
+    return captured, counts
+
+
 @dataclass
 class _StepBuffers:
     """The fused epoch's fixed device buffers: a captured step reads and
@@ -385,31 +426,11 @@ class FusedEpoch:
     def _capture(self, state: TrainState, store: FrameStore, buf: _StepBuffers,
                  masks: Masks) -> None:
         """Run one step eagerly on a side stream, then capture the step on
-        that stream.  Each capture has a stream of its own, not torch's one
-        default capture stream: cuBLAS keeps one workspace per stream, which
-        a graph then holds, and two graphs captured on one stream and
-        replayed side by side (the parallel suite) would share it."""
-        dev = store.device
+        that stream (``capture_after_eager``)."""
         self.graph = self.graph_key = None  # let the old graph's memory go first
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.step(state, store, buf, masks)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = launches.snapshot()
-        # no cyclic collection inside the capture: freeing pinned memory that
-        # a copy used makes the host allocator record and query CUDA events,
-        # which invalidates a capture (torch.cuda.graph collects first)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            graph = self._capture_graphs(state, store, buf, masks, side)
-        finally:
-            if collecting:
-                gc.enable()
-        # the capture ran no kernel: its counts come back at every replay
-        self.replay_counts = launches.since(before)
-        launches.add(self.replay_counts, -1)
+        graph, self.replay_counts = capture_after_eager(
+            store.device, lambda: self.step(state, store, buf, masks),
+            lambda side: self._capture_graphs(state, store, buf, masks, side))
         self.graph, self.graph_key = graph, self._graph_key(state, store, masks)
         self.captures += 1
 
@@ -678,29 +699,168 @@ def evaluate(
     return psnr, msssim
 
 
-def make_decode_fn(cfg: TrainConfig) -> Callable[[nn.Module, torch.Tensor], torch.Tensor]:
-    """decode(model, t [B]) -> the final frame batch [B, H, W, 3] f32."""
-    mcfg = cfg.model
-
-    @torch.no_grad()
-    def decode(model: nn.Module, t: torch.Tensor) -> torch.Tensor:
-        return model(positional_encoding(t, mcfg.embed))[-1]
-
-    return decode
+@torch.no_grad()
+def decode_batch(model: nn.Module, cfg: TrainConfig, t: torch.Tensor) -> torch.Tensor:
+    """The final frame batch [B, H, W, 3] f32 of ``t`` [B], eagerly: the
+    positional encoding and the generator's forward."""
+    return model(positional_encoding(t, cfg.model.embed))[-1]
 
 
 def decode_video(
     model: nn.Module, cfg: TrainConfig, t_batches: torch.Tensor, *, keep_frames: bool = True
 ) -> torch.Tensor:
-    """Decode every row of ``t_batches`` [n_batches, B].  Returns frames
-    [n_batches, B, H, W, 3] (f32) when ``keep_frames``, else a checksum per
-    batch [n_batches] (decode-and-discard, the throughput measurement)."""
-    decode = make_decode_fn(cfg)
+    """Decode every row of ``t_batches`` [n_batches, B] eagerly, one
+    ``decode_batch`` a row: the oracle of ``make_video_decode_fn``, and what
+    it runs on the CPU.  Returns frames [n_batches, B, H, W, 3] (f32) when
+    ``keep_frames``, else a checksum per batch [n_batches] (decode-and-discard,
+    the throughput measurement)."""
     outs = []
     for t in t_batches:
-        frames = decode(model, t)
+        frames = decode_batch(model, cfg, t)
         outs.append(frames if keep_frames else frames.sum())
     return torch.stack(outs)
+
+
+def _int8_tensors(model: Generator) -> list:
+    """Every tensor of the module's int8 decode tables, the packed stages'
+    included, in table order."""
+    out = []
+    for name in sorted(model.int8):
+        entry = model.int8[name]
+        for v in entry:
+            if dataclasses.is_dataclass(v):
+                out.extend(getattr(v, f.name) for f in dataclasses.fields(v))
+            else:
+                out.append(v)
+    return [t for t in out if torch.is_tensor(t)]
+
+
+def decode_graph_key(model: Generator, batch: int, keep_frames: bool) -> tuple:
+    """What a captured decode of ``batch`` frames holds: the module, its mode
+    and config, and each parameter's, buffer's and int8 table's address and
+    version (a change in place moves the version, and with it the packed
+    kernel weights the capture read)."""
+    tensors = [*model.parameters(), *model.buffers(), *_int8_tensors(model)]
+    return (id(model), model.training, model.cfg, batch, keep_frames, tuple(sorted(model.int8)),
+            tuple((t.data_ptr(), t._version) for t in tensors))
+
+
+class VideoDecode:
+    """The decode function of ``make_video_decode_fn``:
+    ``run(model, t_batches [n_batches, B]) -> frames [n_batches, B, H, W, 3]
+    f32`` (``keep_frames``) or a checksum per batch [n_batches] f32, new
+    tensors at every call, as the JAX package's one ``lax.scan`` dispatch
+    returns new arrays.
+
+    On the card a batch's decode runs on fixed device buffers: it reads row
+    ``k`` of a [rows, B] buffer of frame times, decodes it (``decode_batch``:
+    the stem, block 0 and the casts on the library, blocks 1-4 through K1 or
+    K2), writes the batch's checksum at ``k`` (or leaves its frames in the
+    graph's pool, copied out after the replay) and advances ``k``.  The first
+    batch after a change of what the graph holds (``decode_graph_key``: the
+    first call, another model, a weight or int8 table changed in place, the
+    batch size; or more batches than the buffers hold) runs eagerly on a
+    side stream; then the batch is captured as a CUDA graph, and every later
+    batch is one replay.  A capture or a replay that fails raises: nothing
+    falls back to eager.  The graph's pool holds one batch's activations.
+    On the CPU ``decode_video`` runs."""
+
+    def __init__(self, cfg: TrainConfig, keep_frames: bool):
+        self.cfg = cfg
+        self.keep_frames = keep_frames
+        self.t: Optional[torch.Tensor] = None  # [rows, B] f32: the batches' frame times
+        self.k: Optional[torch.Tensor] = None  # [1] int64: the batch, advanced by the decode
+        self.sums: Optional[torch.Tensor] = None  # [rows] f32: the checksums
+        self.out: Optional[torch.Tensor] = None  # the captured batch's frames (keep_frames)
+        self.graph = None  # torch.cuda.CUDAGraph of one batch
+        self.graph_key = None  # what the graph was captured on (decode_graph_key)
+        self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
+        self.captures = 0  # captures since construction
+
+    def _buffers(self, device: torch.device, n: int, b: int) -> None:
+        t = self.t
+        if t is None or t.shape[0] < n or t.shape[1] != b or t.device != device:
+            self.graph = self.graph_key = self.out = None  # it reads the old buffers
+            self.t = torch.zeros(max(n, 1), b, device=device)
+            self.k = torch.zeros(1, dtype=torch.long, device=device)
+            self.sums = torch.zeros(max(n, 1), device=device)
+
+    @torch.no_grad()
+    def step(self, model: Generator) -> torch.Tensor:
+        """Decode the batch ``t[k]``, its checksum into ``sums[k]`` unless
+        ``keep_frames``; then ``k += 1``.  Returns the frames."""
+        k = self.k
+        frames = decode_batch(model, self.cfg, self.t.index_select(0, k).reshape(-1))
+        if not self.keep_frames:
+            self.sums.index_copy_(0, k, frames.sum().reshape(1))
+        k.add_(1)
+        return frames
+
+    def _capture(self, model: Generator, key: tuple, frames: Optional[torch.Tensor]) -> None:
+        """The first batch eagerly (into ``frames[0]``), then the capture."""
+        self.graph = self.graph_key = self.out = None  # let the old graph's memory go first
+
+        def eager():
+            out = self.step(model)
+            if frames is not None:
+                frames[0].copy_(out)
+
+        def capture(side):
+            graph = torch.cuda.CUDAGraph()
+            # thread-local: a process group's own threads (NCCL's watchdog
+            # queries its events) may call CUDA while this thread captures
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                out = self.step(model)
+            return graph, out
+
+        (graph, out), self.replay_counts = capture_after_eager(self.t.device, eager, capture)
+        self.graph, self.graph_key = graph, key
+        self.out = out if self.keep_frames else None
+        self.captures += 1
+
+    def __call__(self, model: Generator, t_batches) -> torch.Tensor:
+        device = next(model.parameters()).device
+        if device.type != "cuda":
+            return decode_video(model, self.cfg, t_batches, keep_frames=self.keep_frames)
+        t_batches = torch.as_tensor(t_batches, dtype=torch.float32)
+        n, b = t_batches.shape
+        self._buffers(device, n, b)
+        self.t[:n].copy_(t_batches)
+        self.k.zero_()
+        frames = None
+        if self.keep_frames:
+            frames = torch.empty((n, b, *output_hw(model.cfg), 3), device=device)
+        first = 0
+        key = decode_graph_key(model, b, self.keep_frames)
+        if n and (self.graph is None or self.graph_key != key):
+            self._capture(model, key, frames)  # the first batch runs in here
+            first = 1
+        for i in range(first, n):
+            self.graph.replay()
+            launches.add(self.replay_counts)
+            if frames is not None:
+                frames[i].copy_(self.out)
+        return frames if self.keep_frames else self.sums[:n].clone()
+
+
+def make_video_decode_fn(cfg: TrainConfig, *, keep_frames: bool = True) -> VideoDecode:
+    """Whole-video decode, the JAX package's one-dispatch ``lax.scan``:
+    ``run(model, t_batches [n_batches, B])`` -> frames [n_batches, B, H, W,
+    3] f32 when ``keep_frames``, else a checksum per batch [n_batches].  On
+    the card one CUDA graph replay a batch (``VideoDecode``); the graph lives
+    as long as the returned function."""
+    return VideoDecode(cfg, keep_frames)
+
+
+def make_decode_fn(cfg: TrainConfig) -> Callable[[nn.Module, torch.Tensor], torch.Tensor]:
+    """decode(model, t [B]) -> the final frame batch [B, H, W, 3] f32: the
+    one-batch case of ``make_video_decode_fn``, one replay a call on the card."""
+    run = make_video_decode_fn(cfg, keep_frames=True)
+
+    def decode(model: nn.Module, t: torch.Tensor) -> torch.Tensor:
+        return run(model, t.reshape(1, -1))[0]
+
+    return decode
 
 
 def decode_batch_cap(h: int, w: int, base: int = 8) -> int:
@@ -721,32 +881,11 @@ def decode_time_batches(t_all, bsz: int) -> np.ndarray:
     return t_all[: n_batches * bsz].reshape(n_batches, bsz)
 
 
-def measure_decode_fps(
-    model: nn.Module, cfg: TrainConfig, t_all, bsz: int, reps: int = DECODE_REPS, mesh=None
-) -> float:
-    """Whole-video decode throughput on the card: one warm-up decode, then
-    ``reps`` timed decodes of the same frames, each between two CUDA events;
-    frames per second of the fastest.  Decodes ``(1 + reps) * n_batches``
-    batches in all.  With ``mesh`` each rank decodes its columns of every
-    batch (``parallel.sharding.make_sharded_video_decode_fn``); ``bsz`` is
-    the global batch and must divide by the data axis.  The timed window
-    holds no collective: each rep's checksums stay on the rank, and after the
-    loop ``reduce_decode_reps`` sums them and takes each rep's time as the
-    slowest rank's."""
-    device = next(model.parameters()).device
-    if device.type != "cuda":
-        raise RuntimeError(f"decode fps is measured on a CUDA device, not {device}")
-    if mesh is None:
-        def decode_all(m, t):
-            return decode_video(m, cfg, t, keep_frames=False)
-    else:
-        from ..parallel.sharding import make_sharded_video_decode_fn, reduce_decode_reps
-
-        decode_all = make_sharded_video_decode_fn(cfg, mesh, local=True)
-    t_np = decode_time_batches(t_all, bsz)
-    n_batches, bsz = t_np.shape
-    t_mat = torch.from_numpy(t_np).to(device)
-    decode_all(model, t_mat)  # warm-up: build, allocator
+def time_decode(decode_all, model: nn.Module, t_mat: torch.Tensor, reps: int = DECODE_REPS):
+    """``decode_all(model, t_mat)`` (checksums [n_batches]) once as a warm-up,
+    then ``reps`` times, each between two CUDA events.  Returns (seconds of
+    each rep, the reps' checksums [reps, n_batches])."""
+    decode_all(model, t_mat)  # warm-up: build, allocator, the capture
     times, sums = [], []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -756,6 +895,37 @@ def measure_decode_fps(
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
+    return times, torch.stack(sums)
+
+
+def measure_decode_fps(
+    model: nn.Module, cfg: TrainConfig, t_all, bsz: int, reps: int = DECODE_REPS, mesh=None
+) -> float:
+    """Whole-video decode throughput on the card: ``make_video_decode_fn``'s
+    checksums, one warm-up decode (the eager first batch and the capture),
+    then ``reps`` timed decodes of the same frames, one replay a batch, each
+    decode between two CUDA events (``time_decode``); frames per second of
+    the fastest.  Decodes ``(1 + reps) * n_batches`` batches in all.  The
+    graph is made for this call and dies with it: a model that trains
+    between two measurements (``train_main --eval_fps``) gets a new one.
+    With ``mesh`` each rank decodes its columns of every batch
+    (``parallel.sharding.make_sharded_video_decode_fn``); ``bsz`` is the
+    global batch and must divide by the data axis.  The timed window holds
+    no collective: each rep's checksums stay on the rank, and after the loop
+    ``reduce_decode_reps`` sums them and takes each rep's time as the
+    slowest rank's."""
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        raise RuntimeError(f"decode fps is measured on a CUDA device, not {device}")
+    if mesh is None:
+        decode_all = make_video_decode_fn(cfg, keep_frames=False)
+    else:
+        from ..parallel.sharding import make_sharded_video_decode_fn, reduce_decode_reps
+
+        decode_all = make_sharded_video_decode_fn(cfg, mesh, local=True)
+    t_np = decode_time_batches(t_all, bsz)
+    n_batches, bsz = t_np.shape
+    times, sums = time_decode(decode_all, model, torch.from_numpy(t_np).to(device), reps)
     if mesh is not None:
-        times, _ = reduce_decode_reps(times, torch.stack(sums), mesh)
+        times, _ = reduce_decode_reps(times, sums, mesh)
     return n_batches * bsz / min(times)
