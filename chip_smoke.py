@@ -50,7 +50,14 @@ Phases (each prints its own lines; any failure exits non-zero):
                both paths; where a step's time goes (torch.profiler); the
                graph step vs the eager step from the same weights (per-step
                losses, launches per replayed step), and ms per step, device
-               total and idle share of both in turns (bf16, f32, mixed)
+               total and idle share of both in turns (bf16, f32, mixed);
+               ``[step-graph]`` lines: make_train_step's per-step graph
+               (run_epoch, as --profile drives it) vs the eager step, the
+               same checks and turns; ``[eval-graph]`` lines: make_eval_step's
+               graph vs the eager eval step on a training model (bf16, f32)
+               over the 16 frames at -b 1 with MS-SSIM: metrics to the bit,
+               5 K5 a replayed frame, the graph's pool, ms a frame of the
+               sweep in turns (eager, graph, graph, eager)
   7. int8-kernel — K2 (int8 decode stage) vs plain version at the flagship's
                int8 blocks 3 and 4 + head (batch 8, the wgmma s8 kernel; beside
                it the WMMA kernel's and the bf16 kernel's time on the same
@@ -61,7 +68,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                serves the .rnvb: 2 K1 + 2 K2 launches per batch (both K2 on
                the wgmma route), frames vs the plain path, fps of the int8,
                bf16 and plain paths; the int8 ``[serve-graph]`` lines (as
-               phase 4's, the recapture after its packed scale changed)
+               phase 4's, the recapture after its packed scale changed);
+               ``[eval-graph]`` lines (as phase 6's) on the served bf16
+               deploy model (4 K1 + 5 K5 a frame) and the int8 one (2 K1 +
+               2 K2 + 5 K5)
   9. out-of-core — the flagship trained from its 16 frames in pinned host
                memory (rung 2: --hbm_budget_mb 1, 16 MiB chunks of 6, 6 and
                4 steps copied on a side stream under the graph's replays) vs
@@ -111,15 +121,19 @@ Phases (each prints its own lines; any failure exits non-zero):
                on the kernel path and with --no_pallas_train: launches a
                step, train PSNR rising, the epoch-10 PSNR of the kernel path
                within a stated bound of the library path's and of the
-               300-epoch run's (``python3 chip_smoke.py --quality`` runs
+               300-epoch run's; the 132-frame val sweep of the kernel path's
+               model, eager vs graph eval step in turns: seconds a sweep,
+               metrics to the bit (``python3 chip_smoke.py --quality`` runs
                phases 1, 2 and 12 alone)
  13. profile — train_main --profile on phase 6's flags (bf16, -e 2): the
-               first epoch's 3 eager steps under utils/profiling.py's trace
-               (torch.profiler, CPU and CUDA), the rest of the run eager; the
-               trace file read back: K3 / K4 / K5 kernel events equal to the
-               traced epoch's launches (4 / 4 / 7 a step), the top device ops,
-               ms of the traced steps beside the untraced eager steps of epoch
-               2 (``python3 chip_smoke.py --profile`` runs phases 1, 2 and 13
+               first epoch's 3 steps under utils/profiling.py's trace
+               (torch.profiler, CPU and CUDA): make_train_step's eager first
+               step, its capture and 2 replays; the rest of the run a replay a
+               step; the trace file read back: K3 / K4 / K5 kernel events
+               equal to the traced epoch's launches (4 / 4 / 7 a step), the
+               top device ops, ms of the traced steps beside the untraced
+               graph steps of epoch 2 and phase 6's graph steps
+               (``python3 chip_smoke.py --profile`` runs phases 1, 2 and 13
                alone)
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
@@ -166,13 +180,17 @@ from repnerv_tpu_torch.models.generator import Generator, calibrate_int8, param_
 from repnerv_tpu_torch.utils.profiling import trace
 from repnerv_tpu_torch.train.loop import (
     DECODE_REPS,
+    build_eval_step_fn,
+    build_train_step_fn,
     decode_batch,
     decode_time_batches,
     decode_video,
     epoch_rows,
+    evaluate,
     init_train_state,
     make_decode_fn,
     make_epoch_fn,
+    make_eval_step,
     make_streaming_epoch_fn,
     make_train_step,
     make_video_decode_fn,
@@ -877,9 +895,10 @@ def _train_cfg(dtype: str, use_kernel: bool) -> TrainConfig:
 
 
 def _step_setup(dtype: str, use_kernel: bool, store: FrameStore):
+    """The seed's state and the eager step (``build_train_step_fn``)."""
     cfg = _train_cfg(dtype, use_kernel)
     state = init_train_state(cfg, "cuda", seed=SEED)
-    step = make_train_step(cfg, TRAIN_FRAMES, with_msssim=True)
+    step = build_train_step_fn(cfg, TRAIN_FRAMES, with_msssim=True)
     t_all = torch.from_numpy(store.t).cuda()
     return state, step, t_all
 
@@ -1277,31 +1296,52 @@ def phase_train(tmp: str) -> dict:
             torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32", "mixed"):
         results[dtype]["graph"] = graph_vs_eager(dtype, store)
+        results[dtype]["step_graph"] = step_graph_vs_eager(dtype, store)
+    for dtype in ("bfloat16", "float32"):
+        # the training model's eval forward stays on the library convs: K5 only
+        model = init_train_state(_train_cfg(dtype, True), "cuda", seed=SEED).model
+        results[dtype]["eval_graph"] = eval_graph_vs_eager(model, f"train {dtype}", store,
+                                                           PER_EVAL_FRAME)
+        del model
+        torch.cuda.empty_cache()
     return results
 
 
 def eager_losses(cfg: TrainConfig, store: FrameStore, rows: np.ndarray) -> torch.Tensor:
     """Per-step losses of the eager step over ``rows`` from the seed's weights."""
+    return step_losses(build_train_step_fn, cfg, store, rows)[0]
+
+
+def step_losses(make, cfg: TrainConfig, store: FrameStore, rows: np.ndarray):
+    """Per-step losses and PSNR rows of ``make``'s step function over ``rows``
+    from the seed's weights; and the state and the step function."""
     state = init_train_state(cfg, "cuda", seed=SEED)
-    step = make_train_step(cfg, TRAIN_FRAMES, with_msssim=True)
+    step = make(cfg, TRAIN_FRAMES, with_msssim=True)
     t_all = torch.from_numpy(store.t).cuda()
-    losses = []
+    losses, psnrs = [], []
     for r in torch.from_numpy(rows).cuda():
         state, aux = step(state, store.gather(r), t_all[r])
         losses.append(aux["loss"])
-    return torch.stack(losses).cpu()
+        psnrs.append(aux["psnr"])
+    return torch.stack(losses).cpu(), torch.stack(psnrs).cpu(), state, step
 
 
-def epoch_step_ms(graph: bool, cfg: TrainConfig, store: FrameStore, profile: bool) -> dict:
-    """ms per step of an epoch (CUDA events around the whole epoch, its
-    metrics fetch included, over the steps) after a first epoch (on the graph
-    path: the eager step and the capture); with ``profile`` also the device
-    time per step of a third epoch from torch.profiler, and the idle share."""
+# the training paths that [graph] and [step-graph] time: (what makes the step
+# or epoch function, what drives it)
+STEP_PATHS = {"eager": (build_train_step_fn, run_epoch),
+              "graph": (make_epoch_fn, run_fused_epoch),
+              "step-graph": (make_train_step, run_epoch)}
+
+
+def epoch_step_ms(path: str, cfg: TrainConfig, store: FrameStore, profile: bool) -> dict:
+    """ms per step of an epoch of ``STEP_PATHS[path]`` (CUDA events around the
+    whole epoch, its metrics fetch included, over the steps) after a first
+    epoch (on a graph path: the eager step and the capture); with ``profile``
+    also the device time per step of a third epoch from torch.profiler, and
+    the idle share."""
     state = init_train_state(cfg, "cuda", seed=SEED)
-    if graph:
-        fn, run = make_epoch_fn(cfg, TRAIN_FRAMES, with_msssim=True), run_fused_epoch
-    else:
-        fn, run = make_train_step(cfg, TRAIN_FRAMES, with_msssim=True), run_epoch
+    make, run = STEP_PATHS[path]
+    fn = make(cfg, TRAIN_FRAMES, with_msssim=True)
     state, _ = run(state, fn, store, cfg, 0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1366,7 +1406,8 @@ def graph_vs_eager(dtype: str, store: FrameStore) -> dict:
     runs = {True: [], False: []}
     for graph_path in (False, True, True, False):
         first = not runs[graph_path]
-        runs[graph_path].append(epoch_step_ms(graph_path, cfg, store, profile=first))
+        runs[graph_path].append(epoch_step_ms("graph" if graph_path else "eager", cfg, store,
+                                              profile=first))
         torch.cuda.empty_cache()
     res = {"max_rel_loss_diff": rel, "eager_max_rel_loss_diff": rel_eager,
            "equal_bits": torch.equal(graph, eager), "replay_launches": counts}
@@ -1381,6 +1422,136 @@ def graph_vs_eager(dtype: str, store: FrameStore) -> dict:
         log(f"[graph] {dtype}: {name} step {res[name]['ms']:.3f} ms "
             f"({', '.join(f'{x:.3f}' for x in res[name]['runs_ms'])}: CUDA events around an epoch "
             f"of {TRAIN_FRAMES} steps, its metrics fetch included, over the steps){extra}")
+    return res
+
+
+def step_graph_vs_eager(dtype: str, store: FrameStore) -> dict:
+    """``make_train_step``'s graph step (one CUDA graph replay a call, as
+    ``run_epoch`` drives it in ``train_main --profile`` and the per-step
+    path) against the eager step (``build_train_step_fn``) on the kernel
+    path from the seed's weights: per-step losses and PSNR rows over the 16
+    steps of epoch 1 to the bit (cuDNN deterministic; graph: the eager first
+    step, the capture, 15 replays), the launches of an epoch of replays,
+    and ms per step of both in turns (eager, graph, graph, eager)."""
+    cfg = _train_cfg(dtype, True)
+    rows = epoch_rows(store, cfg, 0)
+    saved = _deterministic(True)
+    try:
+        eager, eager_psnr, _, _ = step_losses(build_train_step_fn, cfg, store, rows)
+        graph, graph_psnr, state, step = step_losses(make_train_step, cfg, store, rows)
+    finally:
+        _deterministic(saved)
+    equal = torch.equal(graph, eager) and torch.equal(graph_psnr, eager_psnr)
+    log(f"[step-graph] {dtype}: per-step losses and PSNR over {TRAIN_FRAMES} steps, "
+        f"make_train_step's graph step vs the eager step: equal bits {equal} (largest loss "
+        f"difference {(graph - eager).abs().max().item():.3e}); {step.captures} capture")
+    if not equal or step.captures != 1:
+        raise AssertionError(f"{dtype}: the graph step differs from the eager step "
+                             f"({step.captures} captures)")
+    reset_counts()  # an epoch of replays only starts here
+    state, _ = run_epoch(state, step, store, cfg, 1)
+    counts = launch_counts()  # ... and ends here
+    per_step = PER_STEP_MIXED if dtype == "mixed" else PER_STEP
+    want = {k: v * TRAIN_FRAMES for k, v in per_step.items()}
+    got = {k: counts[k] for k in want}
+    log(f"[step-graph] {dtype}: launches in an epoch of {TRAIN_FRAMES} replayed steps {got} "
+        f"(expect {want}: {per_step} a step); captures {step.captures}")
+    if got != want or step.captures != 1:
+        raise AssertionError(f"{dtype}: {got} launches in {TRAIN_FRAMES} replayed steps, "
+                             f"{step.captures} captures")
+    del state, step
+    torch.cuda.empty_cache()
+    runs = {"eager": [], "step-graph": []}
+    for path in ("eager", "step-graph", "step-graph", "eager"):
+        runs[path].append(epoch_step_ms(path, cfg, store, profile=not runs[path]))
+        torch.cuda.empty_cache()
+    res = {"equal_bits": equal, "replay_launches": got}
+    for path, r in runs.items():
+        res[path] = {"ms": statistics.mean([x["ms"] for x in r]), "runs_ms": [x["ms"] for x in r],
+                     **{k: v for k, v in r[0].items() if k != "ms"}}
+        prof = r[0]
+        extra = (f"; device {prof['device_ms']:.3f} ms a step (idle share "
+                 f"{prof['idle_share']:.3f}) (torch.profiler)" if "device_ms" in prof
+                 else "; device time not measured")
+        log(f"[step-graph] {dtype}: {path} step {res[path]['ms']:.3f} ms ("
+            + ", ".join(f"{x:.3f}" for x in res[path]["runs_ms"])
+            + f": CUDA events around a run_epoch of {TRAIN_FRAMES} steps, over the steps){extra}")
+    return res
+
+
+def eval_graph_vs_eager(model, name: str, store: FrameStore, per_frame: dict) -> dict:
+    """``make_eval_step``'s graph (one CUDA graph replay a batch) against the
+    eager eval step (``build_eval_step_fn``) on ``model`` over ``store``'s
+    frames at -b 1 with MS-SSIM, as train_main's sweep runs them: per-frame
+    PSNR and MS-SSIM to the bit (cuDNN deterministic), launches a replayed
+    batch against an eager batch's and ``per_frame``, the graph pool's size;
+    then seconds of ``evaluate``'s sweep in turns (eager, graph, graph,
+    eager), the graph with a fresh step a turn: its first sweep (the eager
+    batch, the capture and the replays; train_main captures once a sweep)
+    and its second (replays only)."""
+    cfg = TrainConfig(model=model.cfg, data=DataConfig(batch_size=1))
+    n = store.num_samples
+    t_all = torch.from_numpy(np.asarray(store.t, np.float32)).cuda()
+
+    def sweep(fn):
+        psnr, msssim = [], []
+        for i in range(n):
+            r = torch.arange(i, i + 1, device="cuda")
+            _, aux = fn(model, store.gather(r), t_all[r])
+            psnr.append(aux["psnr"])
+            msssim.append(aux["msssim"])
+        return torch.cat(psnr).cpu(), torch.cat(msssim).cpu()
+
+    saved = _deterministic(True)
+    try:
+        eager_fn = build_eval_step_fn(cfg, True)
+        before = launch_counts()
+        ref = sweep(eager_fn)
+        eager_frame = {k: (v - before[k]) / n for k, v in launch_counts().items()}
+        step = make_eval_step(cfg, True)
+        first = sweep(step)  # the eager first batch, the capture, the replays
+        before = launch_counts()
+        again = sweep(step)  # replays only
+        replay_frame = {k: (v - before[k]) / n for k, v in launch_counts().items()}
+    finally:
+        _deterministic(saved)
+    equal = [all(torch.equal(a, b) for a, b in zip(got, ref)) for got in (first, again)]
+    want = {k: float(per_frame.get(k, 0)) for k in eager_frame}
+    log(f"[eval-graph] {name}: per-frame PSNR and MS-SSIM of {n} frames at -b 1, graph vs eager "
+        f"eval step: equal bits {equal} (two sweeps of one step, {step.captures} capture); "
+        f"launches a frame: eager {eager_frame}, replayed {replay_frame} (expect {want}); the "
+        f"graph's pool {step.pool_bytes / 2**20:.1f} MiB")
+    if not all(equal) or step.captures != 1:
+        raise AssertionError(f"{name}: the eval graph's metrics differ from the eager step's "
+                             f"({step.captures} captures)")
+    if replay_frame != want or eager_frame != want:
+        raise AssertionError(f"{name}: launches a frame eager {eager_frame}, replayed "
+                             f"{replay_frame}, expected {want}")
+    pool = step.pool_bytes
+    del step
+    torch.cuda.empty_cache()
+    turns = {"eager": [], "graph": [], "graph_replays": []}
+    for path in ("eager", "graph", "graph", "eager"):
+        fn = eager_fn if path == "eager" else make_eval_step(cfg, True)
+        for key in (("eager",) if path == "eager" else ("graph", "graph_replays")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            psnr, _ = evaluate(model, fn, store, cfg)  # ends with its one fetch
+            turns[key].append(time.perf_counter() - t0)
+            if not np.isfinite(psnr).all():
+                raise AssertionError(f"{name} {path}: non-finite sweep PSNR {psnr}")
+        del fn
+    res = {"equal_bits": all(equal), "eager_launches_a_frame": eager_frame,
+           "replay_launches_a_frame": replay_frame, "pool_bytes": pool}
+    for key, r in turns.items():
+        res[key] = {"ms_a_frame": 1e3 * statistics.mean(r) / n, "runs_s": r}
+    log(f"[eval-graph] {name}: ms a frame of evaluate's {n}-frame sweep in turns (eager, graph, "
+        f"graph, eager): eager {res['eager']['ms_a_frame']:.3f} ("
+        + ", ".join(f"{x:.4f} s" for x in turns["eager"])
+        + f"), graph with its capture {res['graph']['ms_a_frame']:.3f} ("
+        + ", ".join(f"{x:.4f} s" for x in turns["graph"])
+        + f"), graph replays only {res['graph_replays']['ms_a_frame']:.3f} ("
+        + ", ".join(f"{x:.4f} s" for x in turns["graph_replays"]) + ")")
     return res
 
 
@@ -1652,7 +1823,16 @@ def phase_compress(tmp: str) -> dict:
         "compute_dtype": base.cfg.compute_dtype,
         "graph_vs_eager": serve_graph_vs_eager(model, "int8"),
     }
-    del base, model, plain, frames, ref, diff
+    # the eval step on the served weights: the deploy model's eval forward is
+    # the decode path (4 K1 a frame), the int8 model's 2 K1 + 2 K2
+    video, vt = synthetic_video(TRAIN_FRAMES, 720, 1280, seed=0)
+    vstore = FrameStore(frames=torch.from_numpy(video).to(dev), t=vt)
+    results["eval_graph"] = {
+        "deploy": eval_graph_vs_eager(base, f"deploy {base.cfg.compute_dtype}", vstore,
+                                      {"K1": 4, "K5": 5}),
+        "int8": eval_graph_vs_eager(model, "int8", vstore, {"K1": 2, "K2": 2, "K5": 5}),
+    }
+    del base, model, plain, frames, ref, diff, vstore
     torch.cuda.empty_cache()
     return results
 
@@ -2821,7 +3001,7 @@ def _one_process(cfg: TrainConfig, store: FrameStore, rows: np.ndarray) -> dict:
     _make_forward_backward(cfg, None)(state, store.gather(idx), t_all[idx])
     grads = {k: p.grad.float().cpu() for k, p in state.model.named_parameters()}
     state = init_train_state(cfg, "cuda", seed=SEED)
-    step = make_train_step(cfg, len(rows), with_msssim=True)
+    step = build_train_step_fn(cfg, len(rows), with_msssim=True)
     losses = []
     for r in torch.from_numpy(rows).cuda():
         state, aux = step(state, store.gather(r), t_all[r])
@@ -3028,8 +3208,8 @@ def phase_quality(tmp: str) -> dict:
     from repnerv_tpu_torch.tools.quality import RECIPE
 
     steps = 132 * QUALITY_EPOCHS
-    argv = RECIPE + ["--branch_type", "ERB", "--manualSeed", "1", "--stop_epoch",
-                     str(QUALITY_EPOCHS), "--device", "cuda"]
+    recipe = RECIPE + ["--branch_type", "ERB", "--manualSeed", "1"]
+    argv = recipe + ["--stop_epoch", str(QUALITY_EPOCHS), "--device", "cuda"]
     cwd, out = os.getcwd(), {}
     for use_kernel in (True, False):
         name = "kernel" if use_kernel else "library"
@@ -3055,6 +3235,8 @@ def phase_quality(tmp: str) -> dict:
         if not all(np.isfinite(psnr)) or not psnr[-1] > psnr[0]:
             raise AssertionError(f"[quality] {name}: PSNR did not rise: {psnr}")
         out[name] = {"psnr": psnr, "wall_s": wall, "launches": got}
+        if use_kernel:
+            out["val_sweep"] = val_sweep_turns(res["state"].model, recipe)
         del res
         torch.cuda.empty_cache()
     k10, l10 = out["kernel"]["psnr"][-1], out["library"]["psnr"][-1]
@@ -3072,6 +3254,44 @@ def phase_quality(tmp: str) -> dict:
                              f"{QUALITY_EPOCH10_PSNR:.4f}: run the ladder of PERF.md 'Quality "
                              f"on the card'")
     return out
+
+
+def val_sweep_turns(model, recipe: list) -> dict:
+    """The val sweep of train_main's evaluation (the recipe's 132 frames,
+    -b 1, MS-SSIM on) on ``model``, the eager eval step
+    (``build_eval_step_fn``) against the graph (``make_eval_step``, a fresh
+    one a turn: the eager first batch, the capture and 131 replays, as each
+    of train_main's sweeps), in turns (eager, graph, graph, eager), with
+    cuDNN as train_main leaves it: seconds a sweep (``evaluate`` ends with its
+    one fetch), and every turn's PSNR / MS-SSIM equal to the bit."""
+    cfg = train_main.args_to_config(train_main.build_parser(eval_mode=False).parse_args(recipe),
+                                    eval_mode=False)
+    store = make_frame_store(cfg.data, torch.device("cuda", 0), split="train")
+    val = dataclasses.replace(store, frame_gap=cfg.data.test_gap)
+    with_msssim = min(val.hw) > 160
+    turns, metrics = {"eager": [], "graph": []}, []
+    for path in ("eager", "graph", "graph", "eager"):
+        fn = (build_eval_step_fn(cfg, with_msssim) if path == "eager"
+              else make_eval_step(cfg, with_msssim))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(evaluate(model, fn, val, cfg))
+        turns[path].append(time.perf_counter() - t0)
+        del fn
+    equal = all(np.array_equal(m[0], metrics[0][0]) and np.array_equal(m[1], metrics[0][1])
+                for m in metrics)
+    res = {path: {"s": statistics.mean(r), "runs_s": r} for path, r in turns.items()}
+    log(f"[quality] val sweep of the epoch-{QUALITY_EPOCHS} model ({val.num_samples} frames, -b "
+        f"1, MS-SSIM {with_msssim}) in turns (eager, graph, graph, eager): eager "
+        f"{res['eager']['s']:.4f} s ({', '.join(f'{x:.4f}' for x in turns['eager'])}), graph "
+        f"{res['graph']['s']:.4f} s ({', '.join(f'{x:.4f}' for x in turns['graph'])}; each "
+        f"with its capture); PSNR {metrics[0][0][-1]:.4f} MS-SSIM {metrics[0][1][-1]:.4f}, "
+        f"equal bits in every turn {equal}")
+    if not equal or not np.isfinite(metrics[0][0]).all():
+        raise AssertionError(f"[quality] the val sweeps differ: {metrics}")
+    res.update(equal_bits=equal, psnr=metrics[0][0].tolist(), msssim=metrics[0][1].tolist(),
+               frames=val.num_samples)
+    return res
 
 
 # phase 13, train_main --profile: the flagship's first epoch traced (its
@@ -3115,12 +3335,14 @@ def trace_kernels(path: str) -> dict:
     return out
 
 
-def phase_profile(tmp: str, smi: str) -> dict:
+def phase_profile(tmp: str, smi: str, phase6_ms: dict = None) -> dict:
     """Phase 13: train_main --profile on the flagship (bf16, -b 1, 16 720p
     frames, -e 2): the traced first epoch's launches, and its trace file read
     back: K3 / K4 / K5 kernel events equal to the launches (4 / 4 / 7 a step),
-    the top device ops; ms of the traced steps beside the untraced eager steps
-    of epoch 2 (CUDA events around each step, the same process)."""
+    the top device ops; ms of the traced steps (the graph step's eager first
+    step with its capture, then replays) beside the untraced graph steps of
+    epoch 2 (CUDA events around each step, the same process), and beside
+    ``phase6_ms``, phase 6's bf16 graph steps of the same run."""
     made, traced = [], {}
     real_make, real_trace = train_main.make_train_step, train_main.trace
 
@@ -3181,13 +3403,20 @@ def phase_profile(tmp: str, smi: str) -> dict:
                     for name, (n, us) in top)
         + f"; all kernels {busy:.3f} ms a step, {len(kernels)} names")
     ms = made[0].ms()
-    traced_ms, eager_ms = ms[:PROFILE_STEPS], ms[PROFILE_STEPS:]
+    traced_ms, graph_ms = ms[:PROFILE_STEPS], ms[PROFILE_STEPS:]
+    captures = made[0].step.captures
+    beside = ("" if not phase6_ms else "; phase 6's bf16 graph steps in this run: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phase6_ms.items()))
     log(f"[profile] ms a step (CUDA events around each step): traced "
         + ", ".join(f"{v:.3f}" for v in traced_ms)
-        + f"; untraced eager steps of epoch 2: median {statistics.median(eager_ms):.3f}, "
-        f"min {min(eager_ms):.3f}, max {max(eager_ms):.3f} ({len(eager_ms)} steps); {smi}")
+        + f" (the first with its capture); untraced graph steps of epoch 2: median "
+        f"{statistics.median(graph_ms):.3f}, min {min(graph_ms):.3f}, max {max(graph_ms):.3f} "
+        f"({len(graph_ms)} steps); {captures} capture in the run{beside}; {smi}")
+    if captures != 1:
+        raise AssertionError(f"[profile] the graph step captured {captures} times")
     return {"launches": launched, "whole_run_launches": got_whole, "kernel_events": in_file,
-            "traced_ms": traced_ms, "eager_ms": eager_ms, "kernel_ms_a_step": busy,
+            "traced_ms": traced_ms, "graph_ms": graph_ms, "captures": captures,
+            "phase6_ms": phase6_ms, "kernel_ms_a_step": busy,
             "top": [{"kernel": name, "ms": us / 1e3 / PROFILE_STEPS, "events": n}
                     for name, (n, us) in top],
             "wall_s": wall, "trace_bytes": os.path.getsize(files[0])}
@@ -3210,7 +3439,9 @@ def main() -> None:
         probe = phase_profiler_probe()
         tp = phase_tp(tmp, device["smi"], tp_rows)
         quality = phase_quality(tmp)
-        profile = phase_profile(tmp, device["smi"])
+        profile = phase_profile(tmp, device["smi"], {
+            "fused epoch": train["bfloat16"]["graph"]["graph"]["ms"],
+            "make_train_step": train["bfloat16"]["step_graph"]["step-graph"]["ms"]})
     for name in sys.modules:
         if name.split(".")[0] in ("jax", "jaxlib", "repnerv_tpu"):
             raise AssertionError(f"the port imported {name}")

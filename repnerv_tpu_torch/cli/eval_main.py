@@ -174,6 +174,7 @@ def run_eval(cfg: TrainConfig, device="cuda") -> dict:
     val_psnr, val_msssim = evaluate(
         model, eval_step, val_store, eval_cfg, max_steps=10 if cfg.debug else None
     )
+    eval_step.release()  # its pool would be held through the decode graph's timing
 
     bsz = decode_batch_cap(*val_store.hw, base=max(cfg.data.batch_size, 8))
     rows = val_store.sample_indices()
@@ -269,6 +270,7 @@ def run_rd_sweep(cfg: TrainConfig, prune_ratios, quant_bits, device="cuda") -> d
             model = quantize_params(copy.deepcopy(pruned), qcfg, qreport, frame_hw=store.hw,
                                     n_frames=n)
             psnr, msssim = evaluate(model, eval_step, val_store, eval_cfg, max_steps=max_steps)
+            eval_step.release()  # each point is a fresh copy: its key never matches again
             row = {
                 "prune_ratio": pr,
                 "prune_actual": pr_actual,

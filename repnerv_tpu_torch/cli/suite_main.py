@@ -182,6 +182,7 @@ def _measure_video(model, store: FrameStore, cfg: TrainConfig, v: int,
     if key not in eval_steps:
         eval_steps[key] = make_eval_step(ecfg, with_msssim)
     psnr, msssim = evaluate(model, eval_steps[key], store, ecfg)
+    eval_steps[key].release()  # the next video is another model: its key never matches
     row.update(psnr=float(psnr[-1]), msssim=float(msssim[-1]))
     return row
 

@@ -12,9 +12,11 @@ Per epoch: train over the video (with ``fused_epoch``, the default as in
 the JAX package: ``make_epoch_fn`` / ``run_fused_epoch``, one CUDA graph
 replay per step on the card, or ``make_streaming_epoch_fn`` when the video
 is on the host or on disk, over ``--hbm_budget_mb`` or a frame directory over
-``--host_budget_mb``; else ``run_epoch``'s eager steps), log PSNR / MS-SSIM to
-stdout and ``rank0.txt`` in the JAX package's line format, evaluate at
-``eval_freq`` and over the last 10 epochs, keep the divergence guard, and at
+``--host_budget_mb``; else ``run_epoch`` over ``make_train_step``'s step, on
+the card also one CUDA graph replay a step), log PSNR / MS-SSIM to stdout
+and ``rank0.txt`` in the JAX package's line format, evaluate at
+``eval_freq`` and over the last 10 epochs (``make_eval_step``: one CUDA
+graph replay a batch on the card), keep the divergence guard, and at
 ``ckpt_freq`` write ``model_latest.pth`` (+ train / val best) and, for
 reparam branches, the deploy-state ``model_latest_deploy.pth``, plus the
 resume file that a rerun with the same output directory picks up.
@@ -40,8 +42,10 @@ model gathered once per evaluation.
 the whole run, so epoch N's PSNR is the whole run's at N.
 
 ``--profile`` (its help says "JAX profiler", the JAX package's words kept)
-trains the whole run through the eager step, as the JAX package does, and
-traces the first epoch's first 3 steps (10 with ``--debug``) with
+trains the whole run through the per-step ``make_train_step``, as the JAX
+package does (on the card a CUDA graph replay a step after an eager first
+step and its capture), and traces the first epoch's first 3 steps (10 with
+``--debug``), that first step and its capture included, with
 ``torch.profiler`` (``utils/profiling.py::trace``) into
 ``<outf>/profile/<host>_<pid>[_rank<r>].<ns>.pt.trace.json``, one file a
 rank, which TensorBoard's profiler plugin or ``chrome://tracing`` reads; that
@@ -241,7 +245,9 @@ def _train(cfg: TrainConfig, device: torch.device, mesh, stop_epoch: int) -> dic
         ep_start = datetime.now()
         if cfg.profile and epoch == start_epoch:
             # as the JAX package: the first epoch's first steps under the
-            # profiler, and no guard, history, epoch line, eval or checkpoint
+            # profiler (the graph step's eager first step, its capture and
+            # replays), and no guard, history, epoch line, eval or checkpoint;
+            # without a mesh the rest of the run is a graph replay a step
             with trace(os.path.join(outf, "profile"), device):
                 state, _ = run_epoch(state, train_step, store, cfg, epoch,
                                      max_steps=max_steps if max_steps is not None else 3)
@@ -282,6 +288,7 @@ def _train(cfg: TrainConfig, device: torch.device, mesh, stop_epoch: int) -> dic
             val_psnr, val_msssim = evaluate(
                 eval_model, eval_step, val_store, cfg, max_steps=max_steps
             )
+            eval_step.release()  # training moves the weights: the next sweep captures anew
             if cfg.eval_fps:
                 n_frames = val_store.num_samples if max_steps is None else min(
                     val_store.num_samples, max_steps * cfg.data.batch_size

@@ -7,7 +7,8 @@ Huffman / rANS -> ``.rnvb`` (port of ``repnerv_tpu/compress/pipeline.py``).
   ``make_streaming_epoch_fn`` for a video on the host or on disk, driven by
   ``run_fused_epoch``; the masks and the QAT transform inside its captured
   step) as the JAX package does with ``fused_epoch`` and no step limit, else
-  through the eager step and ``run_epoch``; then its branches fuse for
+  through ``make_train_step`` (on the card a CUDA graph replay a step) and
+  ``run_epoch``; then its branches fuse for
   deploy.  ``finetune_lr_mode`` "fresh" runs a new warmup + decay over
   ``finetune_epochs``; "reference" continues the original schedule from the
   checkpoint's epoch.

@@ -517,7 +517,9 @@ def make_sharded_train_step(cfg: TrainConfig, steps_per_epoch: int, mesh: Mesh, 
     rank's rows of the batch (``run_epoch`` hands it them: it reads the
     step's ``mesh``) and, under a model axis, on the shards of ``state``
     (``make_sharded_train_state``) -> (state, aux), aux as
-    ``build_train_step_fn``'s, the metrics those of the global batch."""
+    ``build_train_step_fn``'s, the metrics those of the global batch.  It
+    runs eagerly on the card too, unlike ``make_train_step``'s graph step
+    (the collectives inside a CUDA graph are ROADMAP A12)."""
     schedule = _schedule(cfg, steps_per_epoch)
     dp = DataParallelUpdate(cfg, with_msssim, param_transform, mesh)
 

@@ -22,8 +22,10 @@ bf16, Fusion6, cosine with 20% warm-up, a checkpoint and an evaluation every
 ``--stop_epoch N`` stops each train run after epoch N of the schedule
 (``--repeats K`` runs it K times in fresh directories: the spread of a
 short check).  Per train run the summary holds the train PSNR / MS-SSIM of
-every epoch, the val PSNR / MS-SSIM of every evaluation, the wall and the
-seconds per epoch; per eval run its result line (PSNR, MS-SSIM, BPP,
+every epoch, the val PSNR / MS-SSIM of every evaluation, the wall, the
+seconds per epoch and the seconds between epochs that no training took
+(``between_epochs``: evaluations and checkpoints, read from the epoch lines'
+timestamps); per eval run its result line (PSNR, MS-SSIM, BPP,
 entropy-coding efficiency, fps).  Each process's output goes to a log file
 under ``--work``; one summary line per run goes to stdout.
 """
@@ -37,6 +39,7 @@ import re
 import subprocess
 import sys
 import time
+from datetime import datetime
 
 RECIPE = (
     "--dataset synth --synthetic_frames 132 --synthetic_hw 720 1280 "
@@ -52,6 +55,7 @@ INT8 = "--decode_int8 --int8_from_block -2".split()
 
 _EPOCH = re.compile(r"Epoch\[(\d+)/\d+\] lr:(\S+) PSNR: (\S+) MSSSIM: (\S+) "
                     r"Time/epoch: Current:(\S+) Average:(\S+)")
+_STAMP = re.compile(r"^\[(\d{4}/\d\d/\d\d \d\d:\d\d:\d\d)\] Epoch\[")
 _EVAL = re.compile(r"Eval at epoch (\d+): PSNR (\S+) MSSSIM (\S+)")
 
 
@@ -61,8 +65,9 @@ def _last(row: str) -> float:
 
 def parse_rank0(path: str) -> dict:
     """The train and eval lines of a ``rank0.txt``: per epoch (lr, train
-    PSNR and MS-SSIM of the last stage, seconds), per evaluation (val PSNR
-    and MS-SSIM of the last stage)."""
+    PSNR and MS-SSIM of the last stage, seconds, and the line's timestamp
+    in whole seconds), per evaluation (val PSNR and MS-SSIM of the last
+    stage)."""
     epochs, evals = {}, {}
     with open(path) as f:
         for line in f:
@@ -70,10 +75,36 @@ def parse_rank0(path: str) -> dict:
             if m:
                 epochs[int(m[1])] = {"lr": float(m[2]), "psnr": _last(m[3]),
                                      "msssim": _last(m[4]), "s": float(m[5])}
+                stamp = _STAMP.search(line)
+                if stamp:
+                    epochs[int(m[1])]["t"] = datetime.strptime(
+                        stamp[1], "%Y/%m/%d %H:%M:%S").timestamp()
             m = _EVAL.search(line)
             if m:
                 evals[int(m[1])] = {"psnr": _last(m[2]), "msssim": _last(m[3])}
     return {"epochs": epochs, "evals": evals}
+
+
+def between_epochs(epochs: dict, evals: dict, ckpt_freq: int) -> dict:
+    """Seconds between two epoch lines that the next epoch's training did not
+    take: the timestamp gap less the next line's Current seconds.  The
+    timestamps have whole seconds, but gaps in a row add up to the span
+    between their ends, so each sum below is good to +-1 s a run of
+    consecutive epochs.  ``all_s``: every gap; ``plain_s_each``: the mean
+    gap after an epoch without evaluation or checkpoint (the loop's own
+    work); ``eval_s_each``: the mean gap after an evaluation without a
+    checkpoint (the last 10 epochs), less ``plain_s_each``: one sweep."""
+    gaps = {e: epochs[e + 1]["t"] - epochs[e]["t"] - epochs[e + 1]["s"]
+            for e in epochs if e + 1 in epochs and "t" in epochs[e] and "t" in epochs[e + 1]}
+    plain = [g for e, g in gaps.items() if e not in evals and e % ckpt_freq]
+    evaluated = [g for e, g in gaps.items() if e in evals and e % ckpt_freq]
+    out = {"all_s": sum(gaps.values()), "gaps": len(gaps)}
+    if plain:
+        out["plain_s_each"] = sum(plain) / len(plain)
+        if evaluated:
+            out["eval_s_each"] = sum(evaluated) / len(evaluated) - out["plain_s_each"]
+            out["eval_gaps"] = len(evaluated)
+    return out
 
 
 def _run(cmd: list, log_path: str) -> float:
@@ -99,8 +130,10 @@ def train(work: str, name: str, branch: str, seed: int, extra: list, stop_epoch:
                 os.path.join("result", work, f"{name}.log"))
     got = parse_rank0(os.path.join(outf, "rank0.txt"))
     steady = [e["s"] for k, e in got["epochs"].items() if k > 1]
+    ckpt_freq = int(argv[argv.index("--ckpt_freq") + 1])
     return {"argv": argv, "outf": outf, "wall_s": wall,
-            "s_per_epoch": sum(steady) / max(len(steady), 1), **got}
+            "s_per_epoch": sum(steady) / max(len(steady), 1),
+            "between_epochs": between_epochs(got["epochs"], got["evals"], ckpt_freq), **got}
 
 
 def evaluate(work: str, name: str, run: dict, extra: list) -> dict:
@@ -131,9 +164,11 @@ def _say(name: str, r: dict) -> None:
         ev = ", ".join(f"{k}: {v['psnr']:.2f} / {v['msssim']:.4f}"
                        for k, v in sorted(r["evals"].items()))
         last = max(r["epochs"])
+        gap = r["between_epochs"]
         print(f"[quality] {name}: {last} epochs in {r['wall_s']:.1f} s "
               f"({r['s_per_epoch']:.3f} s an epoch); train PSNR at {last} "
-              f"{r['epochs'][last]['psnr']:.4f}; val PSNR / MS-SSIM {ev}", flush=True)
+              f"{r['epochs'][last]['psnr']:.4f}; val PSNR / MS-SSIM {ev}; between epochs "
+              + ", ".join(f"{k} {v:.4g}" for k, v in gap.items()), flush=True)
     else:
         print(f"[quality] {name}: PSNR {r['psnr']:.4f} MS-SSIM {r['msssim']:.4f} "
               f"BPP {r['bpp']:.6f} efficiency {r['efficiency']} fps {r['fps']:.2f} "

@@ -11,8 +11,11 @@ an f32 tensor on the parameters' device that the step writes: no host sync.
 Two epoch runners, both in the JAX package's shuffled order and with one
 fetch of the stacked metrics at the end of the epoch:
 
-* ``run_epoch`` drives the eager step (``make_train_step``), a Python loop
-  of steps;
+* ``run_epoch`` drives a step function, a Python loop of steps: the JAX
+  package's jitted per-step ``make_train_step``, which on the card is one
+  CUDA graph replay a step (``StepGraph``: the fused epoch's step on fixed
+  buffers of one batch), or ``build_train_step_fn``, the eager step, its
+  oracle and what runs on the CPU;
 * ``run_fused_epoch`` drives ``make_epoch_fn``, the counterpart of the JAX
   package's one ``lax.scan`` dispatch per epoch.  Its step reads everything
   from fixed device buffers: the epoch's frame-row matrix and learning-rate
@@ -27,18 +30,27 @@ fetch of the stacked metrics at the end of the epoch:
   ``_capture_graphs`` / ``_replay`` hooks), and ``parallel/suite.py`` runs one
   ``FusedEpoch`` per video, each on its own stream.
 
-Decoding (``make_video_decode_fn``, ``make_decode_fn``) is the JAX
+The eval step (``make_eval_step``, which ``evaluate`` calls once a batch) is
+the JAX package's jitted ``eval_fn``: on the card a batch is captured once
+as a CUDA graph on fixed buffers and replayed once per batch (``EvalStep``);
+``build_eval_step_fn``, the eager step, is its oracle and what runs on the
+CPU.  Decoding (``make_video_decode_fn``, ``make_decode_fn``) is the JAX
 package's one ``lax.scan`` dispatch per video: on the card a batch's decode
 is captured once as a CUDA graph on fixed buffers and replayed once per
 batch (``VideoDecode``); ``decode_video``, the eager loop of batches, is its
-oracle and what runs on the CPU.  Throughput is timed with CUDA events on
-the card, and a measurement without a card fails rather than timing the CPU.
+oracle and what runs on the CPU.  A replay changes the parameters in place
+without Python, so it moves no ``_version``: the train graphs move it
+themselves after their replays (``mark_written``), and every key or cache
+that reads versions sees the new weights.  Throughput is timed with CUDA
+events on the card, and a measurement without a card fails rather than
+timing the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import weakref
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Dict, Optional, Tuple
@@ -187,10 +199,11 @@ def _make_update(cfg: TrainConfig, with_msssim: bool, param_transform):
 def build_train_step_fn(
     cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool = True, param_transform=None
 ):
-    """The train step: (state, frames [B, H, W, 3] f32, t [B], masks | None)
-    -> (state, aux) with aux["loss"], aux["lr"] and aux["psnr"] [n_stage]
-    (and aux["msssim"]) as device tensors (``lr`` a float).  The state's
-    model and optimizer update in place; its step counter advances.
+    """The eager train step: (state, frames [B, H, W, 3] f32, t [B], masks |
+    None) -> (state, aux) with aux["loss"], aux["psnr"] [n_stage] (and
+    aux["msssim"]) as device tensors and aux["lr"] a float.  The state's
+    model and optimizer update in place; its step counter advances.  The
+    oracle of ``make_train_step``'s graph step, and what it runs on the CPU.
 
     ``param_transform`` ({name: parameter} -> {name: tensor}) is applied
     before the forward only: the forward runs on the transformed tensors
@@ -207,10 +220,6 @@ def build_train_step_fn(
         return state, aux
 
     return step_fn
-
-
-# PyTorch has no jit: the single-device step is the raw step itself
-make_train_step = build_train_step_fn
 
 
 def epoch_rows(store: FrameStore, cfg: TrainConfig, epoch: int,
@@ -243,9 +252,12 @@ def run_epoch(
     masks: Masks = None,
     max_steps: Optional[int] = None,
 ) -> Tuple[TrainState, EpochMetrics]:
-    """One epoch of eager steps, with one device-to-host fetch of the stacked
-    metrics at the end.  A resident video is gathered on the device; a host
-    or disk video one batch at a time on the host (``FrameStore.gather``).
+    """One epoch of ``step_fn`` calls (``make_train_step``'s: on the card one
+    CUDA graph replay a step; or the eager ``build_train_step_fn``), with one
+    device-to-host fetch of the stacked metrics at the end.  A resident video
+    is gathered on the device; a host or disk video one batch at a time on
+    the host (``FrameStore.gather``), copied on the current stream, the one
+    the graph step's copy into its frame buffer and its replay run on.
     A data-parallel step (``parallel.sharding.make_sharded_train_step``, which
     carries its ``mesh``) gets this rank's rows of each batch: every rank
     draws the same global permutation and keeps its slice of it."""
@@ -270,6 +282,16 @@ def run_epoch(
         lr = aux["lr"]
     return state, _epoch_metrics(torch.stack(losses), torch.stack(psnrs),
                                  torch.stack(msssims) if msssims else None, lr)
+
+
+def mark_written(tensors) -> None:
+    """Move the ``_version`` of tensors that a CUDA graph replay wrote in
+    place.  A replay runs no Python, so their versions stand still while
+    their values change; every key or cache that reads versions
+    (``decode_graph_key``, ``eval_graph_key``, the packed decode weights of
+    ``Generator._packed_stage``) would go on reading the old weights."""
+    for t in tensors:
+        torch.autograd.graph.increment_version(t)
 
 
 def capture_after_eager(device: torch.device, eager: Callable[[], None],
@@ -363,17 +385,23 @@ class FusedEpoch:
         dev = store.device
         buf = self.buffers
         if buf is None or buf.perm.shape != (rows, b) or buf.perm.device != dev:
-            self.graph = self.graph_key = None  # it reads the old buffers
-            n_stage = sum(head_plan(self.cfg.model))
-
-            def zeros(*shape, dtype=torch.float32):
-                return torch.zeros(*shape, dtype=dtype, device=dev)
-
-            buf = self.buffers = _StepBuffers(
-                perm=zeros(rows, b, dtype=torch.long), t_all=zeros(len(store.t)), lr=zeros(rows),
-                k=zeros(1, dtype=torch.long), loss=zeros(rows), psnr=zeros(rows, n_stage),
-                msssim=zeros(rows, n_stage) if self.with_msssim else None)
+            buf = self._new_buffers(dev, rows, b, len(store.t))
         return buf
+
+    def _new_buffers(self, dev: torch.device, rows: int, b: int, n_t: int) -> _StepBuffers:
+        """Zeroed buffers of ``rows`` steps of ``b`` frames and ``n_t`` frame
+        times; the graph, which reads the old ones, is dropped."""
+        self.graph = self.graph_key = None
+        n_stage = sum(head_plan(self.cfg.model))
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(*shape, dtype=dtype, device=dev)
+
+        self.buffers = _StepBuffers(
+            perm=zeros(rows, b, dtype=torch.long), t_all=zeros(n_t), lr=zeros(rows),
+            k=zeros(1, dtype=torch.long), loss=zeros(rows), psnr=zeros(rows, n_stage),
+            msssim=zeros(rows, n_stage) if self.with_msssim else None)
+        return self.buffers
 
     def _frames(self, store: FrameStore, buf: _StepBuffers, rows: torch.Tensor) -> torch.Tensor:
         """The step's frames [B, H, W, 3] f32: gathered from the resident video."""
@@ -429,7 +457,7 @@ class FusedEpoch:
         that stream (``capture_after_eager``)."""
         self.graph = self.graph_key = None  # let the old graph's memory go first
         graph, self.replay_counts = capture_after_eager(
-            store.device, lambda: self.step(state, store, buf, masks),
+            buf.k.device, lambda: self.step(state, store, buf, masks),
             lambda side: self._capture_graphs(state, store, buf, masks, side))
         self.graph, self.graph_key = graph, self._graph_key(state, store, masks)
         self.captures += 1
@@ -450,8 +478,9 @@ class FusedEpoch:
     def _steps(self, state: TrainState, store: FrameStore, buf: _StepBuffers, masks: Masks,
                n: int) -> None:
         """``n`` steps from the buffers' ``k`` on: eagerly on the CPU; on the
-        card one replay each, the first after a capture when the key moved."""
-        if store.device.type != "cuda":
+        card one replay each, the first after a capture when the key moved.
+        After replays the model's tensors are marked written (``mark_written``)."""
+        if buf.k.device.type != "cuda":
             for _ in range(n):
                 self.step(state, store, buf, masks)
             return
@@ -461,6 +490,8 @@ class FusedEpoch:
         for _ in range(n):
             self._replay()
             launches.add(self.replay_counts)
+        if n:
+            mark_written([*state.model.parameters(), *state.model.buffers()])
 
     def _finish(self, state: TrainState, buf: _StepBuffers, n_steps: int, lrs: np.ndarray):
         state.step += n_steps
@@ -486,6 +517,82 @@ def make_epoch_fn(
     sizes the learning-rate schedule; ``param_transform`` as in
     ``build_train_step_fn``, inside the captured step."""
     return FusedEpoch(cfg, steps_per_epoch, with_msssim, param_transform)
+
+
+class StepGraph(FusedEpoch):
+    """The train step of ``make_train_step``, the JAX package's jitted step:
+    ``step(state, frames [B, H, W, 3] f32, t [B], masks | None) -> (state,
+    aux)``, the surface of ``build_train_step_fn``: aux holds "loss", "psnr"
+    [n_stage] (and "msssim") as device tensors that a later call does not
+    overwrite, and "lr" a float; ``state.step`` advances on the host.
+
+    On the card it is ``FusedEpoch``'s step on buffers of one batch: the
+    frames and ``t`` are copied into fixed device buffers, the step's
+    learning rate is written into one by ``fill_`` (no host tensor), and the
+    step reads row 0 of them.  The first call after a change of
+    ``FusedEpoch._graph_key`` (the model, the optimizer and its state, the
+    masks, the frame buffer: a new batch shape) runs eagerly on a side
+    stream; then the step is captured, and every later call is one replay.
+    The divergence guard's restore writes into the same tensors, so the
+    graph replays on.  A capture or a replay that fails raises.  On the CPU
+    the eager ``build_train_step_fn`` runs."""
+
+    def __init__(self, cfg: TrainConfig, steps_per_epoch: int, with_msssim: bool,
+                 param_transform):
+        super().__init__(cfg, steps_per_epoch, with_msssim, param_transform)
+        self.eager = build_train_step_fn(cfg, steps_per_epoch, with_msssim, param_transform)
+        self.lr_at = partial(lr_at_step, **self.schedule)
+        self.frames: Optional[torch.Tensor] = None  # [B, H, W, 3] f32: the step's frames
+
+    def _frames(self, store, buf: _StepBuffers, rows: torch.Tensor) -> torch.Tensor:
+        return self.frames
+
+    def _held(self, store) -> list:
+        return [self.frames]
+
+    def step(self, state: TrainState, store, buf: _StepBuffers, masks: Masks) -> None:
+        super().step(state, store, buf, masks)
+        buf.k.zero_()  # every call is row 0
+
+    def _step_buffers(self, frames: torch.Tensor) -> _StepBuffers:
+        if self.frames is None or self.frames.shape != frames.shape \
+                or self.frames.device != frames.device:
+            b = frames.shape[0]
+            buf = self._new_buffers(frames.device, 1, b, b)
+            buf.perm.copy_(torch.arange(b, device=frames.device).reshape(1, b))
+            self.frames = torch.empty_like(frames)
+        return self.buffers
+
+    def __call__(self, state: TrainState, frames: torch.Tensor, t: torch.Tensor,
+                 masks: Masks = None):
+        if next(state.model.parameters()).device.type != "cuda":
+            return self.eager(state, frames, t, masks)
+        lr = float(self.lr_at(state.step))
+        buf = self._step_buffers(frames)
+        self.frames.copy_(frames)
+        buf.t_all.copy_(t)
+        buf.lr.fill_(lr)
+        self._steps(state, None, buf, masks, 1)
+        with torch.no_grad():  # copies: the next call writes the same buffers
+            aux = {"loss": buf.loss[0].clone(), "psnr": buf.psnr[0].clone()}
+            if buf.msssim is not None:
+                aux["msssim"] = buf.msssim[0].clone()
+        aux["lr"] = lr
+        state.step += 1
+        return state, aux
+
+
+def make_train_step(
+    cfg: TrainConfig,
+    steps_per_epoch: int,
+    with_msssim: bool = True,
+    param_transform=None,
+) -> StepGraph:
+    """The single-device train step (the JAX package's jitted step), which
+    ``run_epoch`` drives: a ``StepGraph``, one CUDA graph replay a call on
+    the card, ``build_train_step_fn``'s eager step on the CPU; arguments as
+    ``build_train_step_fn``'s."""
+    return StepGraph(cfg, steps_per_epoch, with_msssim, param_transform)
 
 
 class StreamingEpoch(FusedEpoch):
@@ -646,26 +753,175 @@ def run_fused_epoch(
                                  float(aux["lr"][-1]))
 
 
-def make_eval_step(cfg: TrainConfig, with_msssim: bool = True):
-    """eval(model, frames, t) -> (outputs, aux with [B, n_stage] metrics), in
-    eval mode and without autograd."""
+def _make_eval_batch(cfg: TrainConfig, with_msssim: bool):
+    """batch(model, frames, t) -> (outputs, aux with [B, n_stage] metrics):
+    the eval step's body, in the model's current mode."""
     mcfg = cfg.model
 
-    @torch.no_grad()
-    def eval_fn(model: nn.Module, frames: torch.Tensor, t: torch.Tensor):
-        was_training = model.training
-        model.eval()
-        try:
-            outs = model(positional_encoding(t, mcfg.embed))
-        finally:
-            model.train(was_training)
+    def batch(model: nn.Module, frames: torch.Tensor, t: torch.Tensor):
+        outs = model(positional_encoding(t, mcfg.embed))
         targets = [adaptive_avg_pool(frames, o.shape[1:3]) for o in outs]
         aux = {"psnr": psnr_fn(outs, targets)}
         if with_msssim:
             aux["msssim"] = msssim_fn(outs, targets)
         return outs, aux
 
+    return batch
+
+
+def build_eval_step_fn(cfg: TrainConfig, with_msssim: bool = True):
+    """The eager eval step: eval(model, frames [B, H, W, 3] f32, t [B]) ->
+    (outputs, aux with "psnr" (and "msssim") [B, n_stage]), in eval mode and
+    without autograd; the model's mode is put back.  The oracle of
+    ``make_eval_step``'s graph, and what it runs on a CPU model."""
+    batch = _make_eval_batch(cfg, with_msssim)
+
+    @torch.no_grad()
+    def eval_fn(model: nn.Module, frames: torch.Tensor, t: torch.Tensor):
+        was_training = model.training
+        model.eval()
+        try:
+            return batch(model, frames, t)
+        finally:
+            model.train(was_training)
+
     return eval_fn
+
+
+def _int8_tensors(model: Generator) -> list:
+    """Every tensor of the module's int8 decode tables, the packed stages'
+    included, in table order."""
+    out = []
+    for name in sorted(model.int8):
+        entry = model.int8[name]
+        for v in entry:
+            if dataclasses.is_dataclass(v):
+                out.extend(getattr(v, f.name) for f in dataclasses.fields(v))
+            else:
+                out.append(v)
+    return [t for t in out if torch.is_tensor(t)]
+
+
+def weights_key(model: Generator) -> tuple:
+    """What a captured forward of ``model`` holds: the module, its mode and
+    config, and each parameter's, buffer's and int8 table's address and
+    version (a change in place moves the version, and with it the packed
+    kernel weights the capture read).  The module by a weak reference, which
+    equals another only while both name the same live module: a new module
+    may take a freed one's id, and even its tensors' addresses."""
+    tensors = [*model.parameters(), *model.buffers(), *_int8_tensors(model)]
+    return (weakref.ref(model), model.training, model.cfg, tuple(sorted(model.int8)),
+            tuple((t.data_ptr(), t._version) for t in tensors))
+
+
+def eval_graph_key(model: Generator, frames_shape, with_msssim: bool) -> tuple:
+    """What a captured eval batch holds: ``weights_key``, the batch size, the
+    frame shape and whether it computes MS-SSIM."""
+    b, *hw = frames_shape
+    return (weights_key(model), b, tuple(hw), with_msssim)
+
+
+class EvalStep:
+    """The eval step of ``make_eval_step``, the JAX package's jitted
+    ``eval_fn``: ``eval_step(model, frames [B, H, W, 3] f32, t [B]) ->
+    (outputs, aux)``, the model's outputs in eval mode without autograd and
+    aux "psnr" [B, n_stage] (and "msssim" [B, n_stage]), tensors that a
+    later call does not overwrite; the model's mode is put back.
+
+    On a CUDA model the frames and ``t`` are copied into fixed device
+    buffers, and the batch (the positional encoding, the eval-mode forward,
+    the targets and the metrics) runs on them.  The first batch after a
+    change of ``eval_graph_key`` (taken in eval mode: another model, a
+    weight changed in place, the batch or frame shape, MS-SSIM on or off)
+    runs eagerly on a side stream, then the batch is captured as a CUDA
+    graph, and every later batch is one replay, its outputs copied out of
+    the graph's pool.  A batch smaller than the captured one on the same
+    weights, a sweep's short last batch, runs eagerly and is never
+    captured.  A capture or a replay that fails raises: nothing falls back
+    to eager.  On a CPU model ``build_eval_step_fn``'s eager step runs."""
+
+    def __init__(self, cfg: TrainConfig, with_msssim: bool):
+        self.with_msssim = with_msssim
+        self.eager = build_eval_step_fn(cfg, with_msssim)
+        self.batch = _make_eval_batch(cfg, with_msssim)
+        self.frames: Optional[torch.Tensor] = None  # [B, H, W, 3] f32: the batch's frames
+        self.t: Optional[torch.Tensor] = None  # [B] f32: its frame times
+        self.out = None  # (outputs, aux) of the captured batch, in the graph's pool
+        self.graph = None  # torch.cuda.CUDAGraph of one batch
+        self.graph_key = None  # what the graph was captured on (eval_graph_key)
+        self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
+        self.captures = 0  # captures since construction
+        self.pool_bytes = 0  # device memory the last capture reserved for the graph's pool
+
+    def release(self) -> None:
+        """Let the graph, its pool and the buffers go.  A caller that changes
+        the weights or runs other device work before its next sweep calls it
+        after a sweep: the key could not match again, and the pool would be
+        held through that work."""
+        self.graph = self.graph_key = self.out = self.frames = self.t = None
+
+    @torch.no_grad()
+    def __call__(self, model: nn.Module, frames: torch.Tensor, t: torch.Tensor):
+        if next(model.parameters()).device.type != "cuda":
+            return self.eager(model, frames, t)
+        was_training = model.training
+        model.eval()  # the capture records the eval-mode forward, the key that mode
+        try:
+            return self._run(model, frames, t)
+        finally:
+            model.train(was_training)
+
+    def _run(self, model: Generator, frames: torch.Tensor, t: torch.Tensor):
+        key = eval_graph_key(model, frames.shape, self.with_msssim)
+        held = self.graph_key
+        if held is not None and key[0] == held[0] and key[2:] == held[2:] and key[1] < held[1]:
+            return self.batch(model, frames, t)  # the short last batch
+        if self.graph is None or key != held:
+            return self._capture(model, frames, t, key)
+        self.frames.copy_(frames)
+        self.t.copy_(t)
+        self.graph.replay()
+        launches.add(self.replay_counts)
+        outs, aux = self.out
+        return [o.clone() for o in outs], {k: v.clone() for k, v in aux.items()}
+
+    def _capture(self, model: Generator, frames: torch.Tensor, t: torch.Tensor, key: tuple):
+        """The batch eagerly on a side stream, then its capture; returns the
+        eager batch's outputs."""
+        self.graph = self.graph_key = self.out = None  # let the old graph's memory go first
+        dev = frames.device
+        if self.frames is None or self.frames.shape != frames.shape or self.frames.device != dev:
+            self.frames, self.t = torch.empty_like(frames), torch.empty_like(t)
+        self.frames.copy_(frames)
+        self.t.copy_(t)
+        first = []
+
+        def capture(side):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                # inside: entering the capture empties the allocator's cache
+                reserved = torch.cuda.memory_reserved(dev)
+                out = self.batch(model, self.frames, self.t)
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            return graph, out
+
+        (graph, self.out), self.replay_counts = capture_after_eager(
+            dev, lambda: first.append(self.batch(model, self.frames, self.t)), capture)
+        self.graph, self.graph_key = graph, key
+        self.captures += 1
+        outs, aux = first[0]
+        main = torch.cuda.current_stream(dev)
+        for x in (*outs, *aux.values()):
+            x.record_stream(main)  # made on the side stream, read on this one
+        return outs, aux
+
+
+def make_eval_step(cfg: TrainConfig, with_msssim: bool = True) -> EvalStep:
+    """eval(model, frames, t) -> (outputs, aux with [B, n_stage] metrics), in
+    eval mode and without autograd: an ``EvalStep``, one CUDA graph replay a
+    batch on the card; the graph lives until its ``release`` or as long as
+    the returned function."""
+    return EvalStep(cfg, with_msssim)
 
 
 def evaluate(
@@ -721,28 +977,10 @@ def decode_video(
     return torch.stack(outs)
 
 
-def _int8_tensors(model: Generator) -> list:
-    """Every tensor of the module's int8 decode tables, the packed stages'
-    included, in table order."""
-    out = []
-    for name in sorted(model.int8):
-        entry = model.int8[name]
-        for v in entry:
-            if dataclasses.is_dataclass(v):
-                out.extend(getattr(v, f.name) for f in dataclasses.fields(v))
-            else:
-                out.append(v)
-    return [t for t in out if torch.is_tensor(t)]
-
-
 def decode_graph_key(model: Generator, batch: int, keep_frames: bool) -> tuple:
-    """What a captured decode of ``batch`` frames holds: the module, its mode
-    and config, and each parameter's, buffer's and int8 table's address and
-    version (a change in place moves the version, and with it the packed
-    kernel weights the capture read)."""
-    tensors = [*model.parameters(), *model.buffers(), *_int8_tensors(model)]
-    return (id(model), model.training, model.cfg, batch, keep_frames, tuple(sorted(model.int8)),
-            tuple((t.data_ptr(), t._version) for t in tensors))
+    """What a captured decode of ``batch`` frames holds: ``weights_key``, the
+    batch size and whether it keeps the frames."""
+    return (weights_key(model), batch, keep_frames)
 
 
 class VideoDecode:

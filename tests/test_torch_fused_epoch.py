@@ -357,7 +357,7 @@ def _eager_and_graph(cfg, store, device):
     (graph), from the same weights; the fused epoch's launch counts."""
     perm = loop.epoch_rows(store, cfg, 0)
     a = loop.init_train_state(cfg, device, seed=0)
-    step = loop.make_train_step(cfg, len(perm), with_msssim=False)
+    step = loop.build_train_step_fn(cfg, len(perm), with_msssim=False)
     t_all = torch.from_numpy(store.t).to(device)
     eager = []
     for r in torch.from_numpy(perm).to(device):
@@ -423,7 +423,8 @@ def test_graph_holds_remat_and_the_restored_state_on_the_card(cuda):
     ref = loop.init_train_state(cfg, cuda, seed=3)
     ref.model.load_state_dict(best)
     ref.step = 6
-    ref, r = loop.run_epoch(ref, loop.make_train_step(cfg, 6, with_msssim=False), store, cfg, 1)
+    ref, r = loop.run_epoch(ref, loop.build_train_step_fn(cfg, 6, with_msssim=False), store, cfg,
+                            1)
     assert m.loss == pytest.approx(r.loss, rel=1e-5)
 
 

@@ -85,3 +85,30 @@ def test_quality_tool_runs_the_recipe_and_writes_its_summary(tmp_path):
             assert r0["epochs"][k][key] == r1["epochs"][k][key], (k, key)
     assert r0["wall_s"] > 0
     assert "--stop_epoch" not in r0["argv"] and r0["argv"][-len(TINY.split()):] == TINY.split()
+
+
+def test_between_epochs_reads_the_gaps_from_the_timestamps(tmp_path):
+    """The seconds between epoch lines that no training took, from a log of
+    the train CLI's line format: epochs 1-6, an evaluation after 2, 4 and 5,
+    a checkpoint after 4 (ckpt_freq 4).  Each gap is the timestamp gap less
+    the next line's Current seconds; an evaluation's sweep is its gap less
+    the mean gap after a plain epoch."""
+    stamps = {1: 0, 2: 3, 3: 9, 4: 12, 5: 20, 6: 26}  # seconds after 10:00:00
+    current = {1: 2.5, 2: 2.6, 3: 2.7, 4: 2.4, 5: 2.8, 6: 2.9}
+    lines = []
+    for e in range(1, 7):
+        lines.append(f"[2026/10/17 10:00:{stamps[e]:02d}] Epoch[{e}/6] lr:1.00e-03 PSNR: 20.0 "
+                     f"MSSSIM: 0.5 Time/epoch: Current:{current[e]:.2f} Average:2.50")
+        if e in (2, 4, 5):
+            lines.append(f"Eval at epoch {e}: PSNR 21.0 MSSSIM 0.6")
+    path = tmp_path / "rank0.txt"
+    path.write_text("\n".join(lines) + "\n")
+    got = quality.parse_rank0(str(path))
+    assert got["epochs"][2]["t"] - got["epochs"][1]["t"] == 3
+    gap = quality.between_epochs(got["epochs"], got["evals"], ckpt_freq=4)
+    gaps = {e: stamps[e + 1] - stamps[e] - current[e + 1] for e in range(1, 6)}
+    assert gap["gaps"] == 5 and gap["all_s"] == pytest.approx(sum(gaps.values()))
+    plain = (gaps[1] + gaps[3]) / 2  # neither evaluated nor checkpointed
+    assert gap["plain_s_each"] == pytest.approx(plain)
+    assert gap["eval_gaps"] == 2  # 2 and 5: 4 also checkpoints
+    assert gap["eval_s_each"] == pytest.approx((gaps[2] + gaps[5]) / 2 - plain)
