@@ -50,7 +50,9 @@ step and its capture), and traces the first epoch's first 3 steps (10 with
 ``<outf>/profile/<host>_<pid>[_rank<r>].<ns>.pt.trace.json``, one file a
 rank, which TensorBoard's profiler plugin or ``chrome://tracing`` reads; that
 epoch gets no epoch line, evaluation or checkpoint.  On the card the trace
-fails the run if the kernels launched and it holds none.
+fails the run if the kernels launched and it holds none.  After the trace a
+"profiled spans" line names the program spans (``utils/profiling.py::span``)
+that took the most device, idle and host time.
 """
 
 from __future__ import annotations
@@ -83,7 +85,7 @@ from ..train.loop import (
 )
 from ..train.recovery import DivergenceGuard, snapshot
 from ..utils.costs import generator_macs
-from ..utils.profiling import trace
+from ..utils.profiling import summary_line, trace
 from .args import args_to_config, build_parser, exp_id
 
 
@@ -248,10 +250,11 @@ def _train(cfg: TrainConfig, device: torch.device, mesh, stop_epoch: int) -> dic
             # profiler (the graph step's eager first step, its capture and
             # replays), and no guard, history, epoch line, eval or checkpoint;
             # without a mesh the rest of the run is a graph replay a step
-            with trace(os.path.join(outf, "profile"), device):
+            with trace(os.path.join(outf, "profile"), device) as rec:
                 state, _ = run_epoch(state, train_step, store, cfg, epoch,
                                      max_steps=max_steps if max_steps is not None else 3)
             log(outf, 0, f"profiler trace written to {outf}/profile")
+            log(outf, 0, f"profiled spans {summary_line(rec)}")
             continue
         state, m = run(state, train_step, store, cfg, epoch, max_steps=max_steps)
         state, _ = guard.observe(epoch, float(m.psnr[-1]), state)

@@ -127,6 +127,10 @@ def load_library() -> ctypes.CDLL:
             lib.repnerv_ssim_moments_vjp.argtypes = [*[p] * 6, i, i, i, p, i, p]
             # x, out, N, H, W, window, size, full, stream
             lib.repnerv_gauss_blur_valid.argtypes = [p, p, i, i, i, p, i, i, p]
+            # stream -> kernel, memset and memcpy nodes of the graph it is
+            # capturing into; -1 when it captures none, -2 on an error
+            lib.repnerv_capture_nodes.argtypes = [p]
+            lib.repnerv_capture_nodes.restype = ctypes.c_longlong
             for fn in (
                 lib.repnerv_fused_conv_ps_act,
                 lib.repnerv_train_stage_fwd,

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..models.layers import activation
+from ..utils.profiling import span
 from .build import load_library
 from .decode import (
     ACT_CODES,
@@ -291,11 +292,12 @@ class _FusedStageTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, head_w, head_b, stride, act, squash, cdt_name):
         cd = DTYPES[cdt_name]
-        p = pack_weights(
-            w.detach(), b.detach(), stride, cd,
-            head_w=head_w.detach() if head_w is not None else None,
-            head_b=head_b.detach() if head_b is not None else None,
-        )
+        with span("train_tail.pack_weights"):
+            p = pack_weights(
+                w.detach(), b.detach(), stride, cd,
+                head_w=head_w.detach() if head_w is not None else None,
+                head_b=head_b.detach() if head_b is not None else None,
+            )
         xc = x.detach().to(cd).contiguous()  # x itself when it has the type and layout
         out, z = stage_forward(xc, p, act, squash)
         with_head = head_w is not None

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from . import reparam
 from .layers import ConvWeights, activation, conv2d, make_norm, pixel_shuffle
 
@@ -118,7 +119,8 @@ class NeRVBlock(nn.Module):
         """NHWC forward: conv (fused, or the branch sum), pixel shuffle, norm,
         act, as the JAX ``apply_block``."""
         if self.rbr_reparam is not None or online_fuse:
-            k, b = reparam.fuse(self.branch_type, self)
+            with span("reparam.fuse"):
+                k, b = reparam.fuse(self.branch_type, self)
             out = conv2d(x, k, b, mixed=mixed)
         else:
             out = apply_branches_direct(self, x)

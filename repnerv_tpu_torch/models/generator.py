@@ -52,6 +52,7 @@ from ..config import ModelConfig, head_plan, stage_channels
 from ..kernels import decode as decode_kernel
 from ..kernels import decode_int8
 from ..kernels.train_tail import fused_stage_train
+from ..utils.profiling import span
 from . import reparam
 from .blocks import NeRVBlock, block_to_deploy
 from .layers import MLP, ConvWeights, conv2d
@@ -204,7 +205,8 @@ class Generator(nn.Module):
                 )
                 if q is not None:
                     if x.dtype != torch.int8:
-                        x = decode_int8.quantize_act_int8(x, q.in_scale)
+                        with span("int8.quantize_act"):
+                            x = decode_int8.quantize_act_int8(x, q.in_scale)
                     x = decode_int8.decode_stage_int8(x.contiguous(), q.packed, cfg.act, squash)
                     if fuse_head is not None:
                         outputs.append(x)
@@ -222,7 +224,8 @@ class Generator(nn.Module):
                     p = self._packed_stage(li, fuse_head, dtype)
                     x = decode_kernel.decode_stage(x.to(dtype).contiguous(), p, cfg.act, squash)
                 elif use_ptrain(cfg, x, train):
-                    wt, bt = reparam.fuse(cfg.branch_type, blk)
+                    with span("reparam.fuse"):
+                        wt, bt = reparam.fuse(cfg.branch_type, blk)
                     if bt is None:
                         bt = torch.zeros(wt.shape[0], dtype=wt.dtype, device=wt.device)
                     x = fused_stage_train(

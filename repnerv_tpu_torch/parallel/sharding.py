@@ -85,6 +85,7 @@ from ..train.loop import (
     make_video_decode_fn,
 )
 from ..train.schedule import lr_at_step
+from ..utils.profiling import capture_graph
 from .tensor_parallel import divides
 
 TIMEOUT = timedelta(seconds=300)  # a collective that waits longer fails
@@ -578,9 +579,9 @@ class ShardedEpoch(FusedEpoch):
         # thread-local: the process group's own threads (NCCL's watchdog
         # queries its events) may call CUDA while this thread captures
         before, after = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        with torch.cuda.graph(before, stream=stream, capture_error_mode="thread_local"):
+        with capture_graph(before, stream, capture_error_mode="thread_local"):
             self._before(state, store, buf, masks)
-        with torch.cuda.graph(after, stream=stream, capture_error_mode="thread_local"):
+        with capture_graph(after, stream, capture_error_mode="thread_local"):
             self._after(state, buf, masks)
         return before, after
 

@@ -44,6 +44,13 @@ themselves after their replays (``mark_written``), and every key or cache
 that reads versions sees the new weights.  Throughput is timed with CUDA
 events on the card, and a measurement without a card fails rather than
 timing the CPU.
+
+The step's parts (``step.forward``, ``step.loss``, ``step.backward``,
+``step.adam``, ``step.metrics``), the epochs' edges, the step's capture and
+the decode's host work run inside ``utils/profiling.py::span``s, and every
+replay inside ``graph.replay:<id>`` of its capture's labels, so that a
+trace charges a replayed kernel to the span that launched it at the
+capture.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from ..models.embedding import positional_encoding
 from ..models.generator import Generator
 from ..ops.losses import multi_scale_loss
 from ..ops.metrics import msssim_fn, psnr_fn
+from ..utils.profiling import capture_graph, labelled, span
 from .schedule import lr_at_step, lr_table
 
 DECODE_REPS = 3  # timed whole-video decodes per fps measurement
@@ -150,16 +158,19 @@ def _make_forward_backward(cfg: TrainConfig, param_transform, mesh=None):
 
     def forward_backward(state: TrainState, frames, t):
         model, opt = state.model, state.optimizer
-        embed = positional_encoding(t, mcfg.embed)
-        if param_transform is None:
-            outs = model(embed, **kw)
-        else:
-            params = param_transform(dict(model.named_parameters()))
-            outs = torch.func.functional_call(model, params, (embed,), kw)
-        targets = [adaptive_avg_pool(frames, o.shape[1:3]) for o in outs]
-        loss = multi_scale_loss(outs, targets, cfg.loss_type, cfg.lw)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("step.forward"):
+            embed = positional_encoding(t, mcfg.embed)
+            if param_transform is None:
+                outs = model(embed, **kw)
+            else:
+                params = param_transform(dict(model.named_parameters()))
+                outs = torch.func.functional_call(model, params, (embed,), kw)
+        with span("step.loss"):
+            targets = [adaptive_avg_pool(frames, o.shape[1:3]) for o in outs]
+            loss = multi_scale_loss(outs, targets, cfg.loss_type, cfg.lw)
+        with span("step.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
         return [o.detach() for o in outs], targets, loss.detach()
 
     return forward_backward
@@ -170,12 +181,13 @@ def apply_update(state: TrainState, masks: Masks, lr) -> None:
     """Adam at ``lr`` (a float, or a 0-dim f32 tensor on the device) on the
     ``.grad`` tensors, with the prune masks on the gradients before and on
     the parameters after, in place."""
-    params = dict(state.model.named_parameters())
-    _apply_masks({k: p.grad for k, p in params.items()}, masks)
-    for group in state.optimizer.param_groups:
-        group["lr"].fill_(lr)  # a 0-dim tensor is copied on the device
-    state.optimizer.step()
-    _apply_masks(params, masks)
+    with span("step.adam"):
+        params = dict(state.model.named_parameters())
+        _apply_masks({k: p.grad for k, p in params.items()}, masks)
+        for group in state.optimizer.param_groups:
+            group["lr"].fill_(lr)  # a 0-dim tensor is copied on the device
+        state.optimizer.step()
+        _apply_masks(params, masks)
 
 
 def _make_update(cfg: TrainConfig, with_msssim: bool, param_transform):
@@ -187,7 +199,7 @@ def _make_update(cfg: TrainConfig, with_msssim: bool, param_transform):
     def update(state: TrainState, frames, t, masks: Masks, lr) -> dict:
         outs, targets, loss = forward_backward(state, frames, t)
         apply_update(state, masks, lr)
-        with torch.no_grad():
+        with torch.no_grad(), span("step.metrics"):
             aux = {"loss": loss, "psnr": psnr_fn(outs, targets).mean(dim=0)}
             if with_msssim:
                 aux["msssim"] = msssim_fn(outs, targets).mean(dim=0)
@@ -262,14 +274,15 @@ def run_epoch(
     carries its ``mesh``) gets this rank's rows of each batch: every rank
     draws the same global permutation and keeps its slice of it."""
     dev = store.device
-    rows_np = epoch_rows(store, cfg, epoch, max_steps)
-    mesh = getattr(step_fn, "mesh", None)
-    if mesh is not None:
-        from ..parallel.sharding import local_batch
+    with span("train.epoch_start"):
+        rows_np = epoch_rows(store, cfg, epoch, max_steps)
+        mesh = getattr(step_fn, "mesh", None)
+        if mesh is not None:
+            from ..parallel.sharding import local_batch
 
-        rows_np = rows_np[:, local_batch(rows_np.shape[1], mesh)]
-    perm = torch.from_numpy(rows_np).to(dev)
-    t_all = torch.from_numpy(np.asarray(store.t, np.float32)).to(dev)
+            rows_np = rows_np[:, local_batch(rows_np.shape[1], mesh)]
+        perm = torch.from_numpy(rows_np).to(dev)
+        t_all = torch.from_numpy(np.asarray(store.t, np.float32)).to(dev)
     losses, psnrs, msssims = [], [], []
     lr = 0.0
     for i, rows in enumerate(perm):
@@ -280,8 +293,10 @@ def run_epoch(
         if "msssim" in aux:
             msssims.append(aux["msssim"])
         lr = aux["lr"]
-    return state, _epoch_metrics(torch.stack(losses), torch.stack(psnrs),
+    with span("train.epoch_end"):
+        metrics = _epoch_metrics(torch.stack(losses), torch.stack(psnrs),
                                  torch.stack(msssims) if msssims else None, lr)
+    return state, metrics
 
 
 def mark_written(tensors) -> None:
@@ -295,11 +310,15 @@ def mark_written(tensors) -> None:
 
 
 def capture_after_eager(device: torch.device, eager: Callable[[], None],
-                        capture: Callable[[torch.cuda.Stream], object]):
+                        capture: Callable[[torch.cuda.Stream], object], kind: str):
     """Run ``eager()`` on a new side stream of ``device``, then
-    ``capture(side)``, which captures its CUDA graphs on that stream, with
-    cyclic collection held off.  Returns (what ``capture`` returned, the
-    kernel launches of one replay).
+    ``capture(side)``, which captures its CUDA graphs on that stream through
+    ``utils/profiling.py::capture_graph``, with cyclic collection held off.
+    Returns (what ``capture`` returned, the kernel launches of one replay,
+    the capture's span labels: a ``Labels`` whose id begins with ``kind``).
+    The caller replays inside ``span(labels.span)``, by which a trace's
+    summary charges each replayed op to the span that launched it at the
+    capture.
 
     The eager run builds the kernels and fills every cache a capture must
     find full (packed weights, PE factors, cuDNN's and cuBLAS's plans).  Each
@@ -321,13 +340,14 @@ def capture_after_eager(device: torch.device, eager: Callable[[], None],
     collecting = gc.isenabled()
     gc.disable()
     try:
-        captured = capture(side)
+        with labelled(kind) as labels:
+            captured = capture(side)
     finally:
         if collecting:
             gc.enable()
     counts = launches.since(before)
     launches.add(counts, -1)
-    return captured, counts
+    return captured, counts, labels
 
 
 @dataclass
@@ -372,6 +392,7 @@ class FusedEpoch:
         self.graph = None  # torch.cuda.CUDAGraph of the step (_capture_graphs)
         self.graph_key = None  # what the graph was captured on (_graph_key)
         self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
+        self.labels = None  # the replay's span labels (capture_after_eager)
         self.captures = 0  # captures since construction
 
     def _check_store(self, store: FrameStore) -> None:
@@ -419,7 +440,7 @@ class FusedEpoch:
         aux = self.update(state, self._frames(store, buf, rows),
                           buf.t_all.index_select(0, rows), masks,
                           buf.lr.index_select(0, k).reshape(()))
-        with torch.no_grad():
+        with torch.no_grad(), span("step.metrics"):
             buf.loss.index_copy_(0, k, aux["loss"].reshape(1))
             buf.psnr.index_copy_(0, k, aux["psnr"].reshape(1, -1))
             if buf.msssim is not None:
@@ -444,7 +465,7 @@ class FusedEpoch:
         """Capture the step on ``stream`` (the caller holds off cyclic
         collection); returns what ``_replay`` replays."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+        with capture_graph(graph, stream):
             self.step(state, store, buf, masks)
         return graph
 
@@ -456,9 +477,10 @@ class FusedEpoch:
         """Run one step eagerly on a side stream, then capture the step on
         that stream (``capture_after_eager``)."""
         self.graph = self.graph_key = None  # let the old graph's memory go first
-        graph, self.replay_counts = capture_after_eager(
-            buf.k.device, lambda: self.step(state, store, buf, masks),
-            lambda side: self._capture_graphs(state, store, buf, masks, side))
+        with span("train.capture"):
+            graph, self.replay_counts, self.labels = capture_after_eager(
+                buf.k.device, lambda: self.step(state, store, buf, masks),
+                lambda side: self._capture_graphs(state, store, buf, masks, side), "step")
         self.graph, self.graph_key = graph, self._graph_key(state, store, masks)
         self.captures += 1
 
@@ -467,12 +489,13 @@ class FusedEpoch:
         returns (buffers, the host learning rates)."""
         self._check_store(store)
         n_steps, b = perm.shape
-        buf = self._buffers(store, b, n_steps)
-        lrs = lr_table(state.step, n_steps, **self.schedule)
-        buf.perm[:n_steps].copy_(torch.from_numpy(np.asarray(perm, np.int64)))
-        buf.t_all.copy_(torch.from_numpy(np.asarray(store.t, np.float32)))
-        buf.lr[:n_steps].copy_(torch.from_numpy(lrs))
-        buf.k.zero_()
+        with span("train.epoch_start"):
+            buf = self._buffers(store, b, n_steps)
+            lrs = lr_table(state.step, n_steps, **self.schedule)
+            buf.perm[:n_steps].copy_(torch.from_numpy(np.asarray(perm, np.int64)))
+            buf.t_all.copy_(torch.from_numpy(np.asarray(store.t, np.float32)))
+            buf.lr[:n_steps].copy_(torch.from_numpy(lrs))
+            buf.k.zero_()
         return buf, lrs
 
     def _steps(self, state: TrainState, store: FrameStore, buf: _StepBuffers, masks: Masks,
@@ -488,7 +511,8 @@ class FusedEpoch:
             self._capture(state, store, buf, masks)  # a step runs in here
             n -= 1
         for _ in range(n):
-            self._replay()
+            with span(self.labels.span):
+                self._replay()
             launches.add(self.replay_counts)
         if n:
             mark_written([*state.model.parameters(), *state.model.buffers()])
@@ -749,8 +773,10 @@ def run_fused_epoch(
         state, aux = epoch_fn(state, store, perm, masks, stream_chunk_steps(store, cfg))
     else:
         state, aux = epoch_fn(state, store, perm, masks)
-    return state, _epoch_metrics(aux["loss"], aux["psnr"], aux.get("msssim"),
+    with span("train.epoch_end"):
+        metrics = _epoch_metrics(aux["loss"], aux["psnr"], aux.get("msssim"),
                                  float(aux["lr"][-1]))
+    return state, metrics
 
 
 def _make_eval_batch(cfg: TrainConfig, with_msssim: bool):
@@ -850,6 +876,7 @@ class EvalStep:
         self.graph = None  # torch.cuda.CUDAGraph of one batch
         self.graph_key = None  # what the graph was captured on (eval_graph_key)
         self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
+        self.labels = None  # the replay's span labels (capture_after_eager)
         self.captures = 0  # captures since construction
         self.pool_bytes = 0  # device memory the last capture reserved for the graph's pool
 
@@ -880,7 +907,8 @@ class EvalStep:
             return self._capture(model, frames, t, key)
         self.frames.copy_(frames)
         self.t.copy_(t)
-        self.graph.replay()
+        with span(self.labels.span):
+            self.graph.replay()
         launches.add(self.replay_counts)
         outs, aux = self.out
         return [o.clone() for o in outs], {k: v.clone() for k, v in aux.items()}
@@ -898,15 +926,15 @@ class EvalStep:
 
         def capture(side):
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            with capture_graph(graph, side, capture_error_mode="thread_local"):
                 # inside: entering the capture empties the allocator's cache
                 reserved = torch.cuda.memory_reserved(dev)
                 out = self.batch(model, self.frames, self.t)
                 self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             return graph, out
 
-        (graph, self.out), self.replay_counts = capture_after_eager(
-            dev, lambda: first.append(self.batch(model, self.frames, self.t)), capture)
+        (graph, self.out), self.replay_counts, self.labels = capture_after_eager(
+            dev, lambda: first.append(self.batch(model, self.frames, self.t)), capture, "eval")
         self.graph, self.graph_key = graph, key
         self.captures += 1
         outs, aux = first[0]
@@ -1013,6 +1041,7 @@ class VideoDecode:
         self.graph = None  # torch.cuda.CUDAGraph of one batch
         self.graph_key = None  # what the graph was captured on (decode_graph_key)
         self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
+        self.labels = None  # the replay's span labels (capture_after_eager)
         self.captures = 0  # captures since construction
 
     def _buffers(self, device: torch.device, n: int, b: int) -> None:
@@ -1047,19 +1076,19 @@ class VideoDecode:
             graph = torch.cuda.CUDAGraph()
             # thread-local: a process group's own threads (NCCL's watchdog
             # queries its events) may call CUDA while this thread captures
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            with capture_graph(graph, side, capture_error_mode="thread_local"):
                 out = self.step(model)
             return graph, out
 
-        (graph, out), self.replay_counts = capture_after_eager(self.t.device, eager, capture)
+        (graph, out), self.replay_counts, self.labels = capture_after_eager(
+            self.t.device, eager, capture, "decode")
         self.graph, self.graph_key = graph, key
         self.out = out if self.keep_frames else None
         self.captures += 1
 
-    def __call__(self, model: Generator, t_batches) -> torch.Tensor:
-        device = next(model.parameters()).device
-        if device.type != "cuda":
-            return decode_video(model, self.cfg, t_batches, keep_frames=self.keep_frames)
+    def _prepare(self, model: Generator, t_batches, device: torch.device):
+        """The buffers with the batches' times and ``k = 0``; returns (n,
+        the frames' tensor or None, the graph key)."""
         t_batches = torch.as_tensor(t_batches, dtype=torch.float32)
         n, b = t_batches.shape
         self._buffers(device, n, b)
@@ -1068,17 +1097,32 @@ class VideoDecode:
         frames = None
         if self.keep_frames:
             frames = torch.empty((n, b, *output_hw(model.cfg), 3), device=device)
+        with span("decode.key"):
+            key = decode_graph_key(model, b, self.keep_frames)
+        return n, frames, key
+
+    def __call__(self, model: Generator, t_batches) -> torch.Tensor:
+        with span("decode.prepare"):
+            device = next(model.parameters()).device
+            if device.type == "cuda":
+                n, frames, key = self._prepare(model, t_batches, device)
+        if device.type != "cuda":
+            return decode_video(model, self.cfg, t_batches, keep_frames=self.keep_frames)
         first = 0
-        key = decode_graph_key(model, b, self.keep_frames)
         if n and (self.graph is None or self.graph_key != key):
             self._capture(model, key, frames)  # the first batch runs in here
             first = 1
         for i in range(first, n):
-            self.graph.replay()
+            with span(self.labels.span):
+                self.graph.replay()
             launches.add(self.replay_counts)
             if frames is not None:
-                frames[i].copy_(self.out)
-        return frames if self.keep_frames else self.sums[:n].clone()
+                with span("decode.copy_out"):
+                    frames[i].copy_(self.out)
+        if frames is not None:
+            return frames
+        with span("decode.copy_out"):
+            return self.sums[:n].clone()
 
 
 def make_video_decode_fn(cfg: TrainConfig, *, keep_frames: bool = True) -> VideoDecode:

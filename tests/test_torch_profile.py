@@ -12,7 +12,8 @@ package's, on the CPU at a tiny size.
   same files, with a trace under ``<outf>/profile`` in both (the weights
   start from other generators, so PSNRs are not compared);
 * tracing changes no number: the traced epoch leaves the weights and Adam's
-  state equal to the bit to ``run_epoch(..., max_steps=3)`` untraced;
+  state equal to the bit to ``run_epoch(..., max_steps=3)`` untraced; its
+  log names the top program spans by device, idle and host time;
 * under ``--mesh_shape 1`` (a gloo world of one) the traced run equals the
   run without the mesh, and its trace file names rank 0.
 """
@@ -153,6 +154,12 @@ def test_traced_epoch_changes_no_number(tmp_path, monkeypatch):
     res = train_main.main(argv + ["--device", "cpu"])
     assert res["history"] == [] and res["state"].step == 3
     assert not os.path.exists(os.path.join(res["outf"], "model_latest.pth"))
+    # the log names the top program spans; on the CPU no device time, no idle
+    (line,) = [x for x in _log(res["outf"]) if x.startswith("profiled spans ")]
+    host = line.split("by host ms: ")[1].split(", ")
+    assert line.startswith("profiled spans by device ms: none; by idle ms: none; by host ms: ")
+    assert len(host) == 5 and {h.rsplit(" ", 1)[0] for h in host} >= {"step.backward"}
+    assert all(float(h.rsplit(" ", 1)[1]) > 0 for h in host)
 
     cfg = _config(argv)
     store = make_frame_store(cfg.data, "cpu", split="train")
