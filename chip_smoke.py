@@ -37,10 +37,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                backward, with the bias and head gradients it sums itself:
                values, and equal bits from two launches) at the four fused
                block shapes of a -b 1 flagship step, f32 and bf16; K5 (SSIM
-               blur) at the loss's and the MS-SSIM levels' shapes: the five
-               moments in one launch (bitwise), their fused VJP (stated
-               bound), and the single-map blur; each vs its plain version,
-               with times
+               blur) at the loss's and the MS-SSIM levels' shapes: the SSIM
+               and cs means in one launch (stated bound, equal bits from two
+               launches; the loss's moments kept, bitwise), their VJP for x
+               and y (stated bound), and the single-map blur; each vs its
+               plain version, with times
   6. train   — train_main on the flagship (16 synthetic 720p frames, -b 1,
                Fusion6, 2 epochs; the fused epoch: one CUDA graph replay per
                step) in bf16 (with --eval_fps: the FPS lines of its
@@ -138,7 +139,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
 heavy part, with a ``library_note`` saying why; K5's is a depthwise
-``F.conv2d`` on the five stacked maps of each moments launch).  Every
+``F.conv2d`` on the five stacked maps of each stats launch).  Every
 torch.profiler session goes through ``utils/profiling.py::trace`` (its
 window primed and padded against ROADMAP C24); the ``[profiler-probe]``
 summary counts the traces of ``profile_kernels`` that lost kernels.  The
@@ -242,9 +243,9 @@ TRAIN_ARGV = (
     "--strides 5 2 2 2 2 --lower_width 96 --branch_type ERB --act swish --single_res "
     f"--loss Fusion6 -b 1 --lr 5e-4 -e {TRAIN_EPOCHS} --device cuda"
 ).split()
-# launches per training step: K3 and K4 on blocks 1-4; K5 once for the five
-# moments of the Fusion6 SSIM term, once for their VJP (the target needs
-# none) and once per level of the MS-SSIM metric.  Per frame of the eval: 5 K5.
+# launches per training step: K3 and K4 on blocks 1-4; K5 once for the means
+# of the Fusion6 SSIM term, once for their VJP (the target needs none) and
+# once per level of the MS-SSIM metric.  Per frame of the eval: 5 K5.
 PER_STEP = {"K3": 4, "K4": 4, "K5": 1 + 1 + 5}
 # "mixed" runs every conv on the library (the JAX gate keeps it off K3 / K4)
 PER_STEP_MIXED = {"K3": 0, "K4": 0, "K5": 1 + 1 + 5}
@@ -667,16 +668,23 @@ TRAIN_SHAPES = [
     ("block3", 180, 320, 96, 96, 2, False),
     ("block4+head", 360, 640, 96, 96, 2, True),
 ]
-# the K5 calls of one step, (name, shape, moments launches, VJP launches): the
-# loss's SSIM at 720p (the five moments, their VJP) and the MS-SSIM metric's
-# five levels (the moments); N = 3 channels, b = 1
-BLUR_CALLS = [("loss", (3, 720, 1280), 1, 1)] + [
-    (f"msssim-l{i}", (3, 720 >> i, 1280 >> i), 1, 0) for i in range(5)
+# the K5 calls of one step, (name, [B, H, W, C] images, stats launches, VJP
+# launches): the loss's SSIM at 720p (the means with the moments kept, one
+# VJP) and the MS-SSIM metric's five levels (the means alone); b = 1, 3
+# channels
+BLUR_CALLS = [("loss", (1, 720, 1280, 3), 1, 1)] + [
+    (f"msssim-l{i}", (1, 720 >> i, 1280 >> i, 3), 1, 0) for i in range(5)
 ]
+# the stats launch sums the plain formula's maps (the same bits) per block
+# and then the blocks, in another order than the plain mean's: within this
+# of the plain means (O(1) values)
+K5_MEAN_TOL = 1e-6
 # the fused VJP adds three terms, B(g_mu) + 2 x B(g_xx) + y B(g_xy), in an
 # order autograd does not fix: within this share of the plain VJP's largest
 # |entry| (a few f32 roundings of O(1) terms)
 K5_VJP_RTOL = 1e-6
+# the SSIM constants of data range 1 (ops/ssim.py)
+SSIM_C1, SSIM_C2 = 0.01**2, 0.03**2
 
 
 def _bf16_ulp(out, ref):
@@ -787,69 +795,102 @@ def phase_train_kernels() -> dict:
         # 2 x 11 FLOPs per value of the column pass and of the row pass
         return 22.0 * maps * n * (h_out * w_in + h_out * w_out)
 
+    c1, c2 = SSIM_C1, SSIM_C2
     for name, shape, n_fwd, n_vjp in BLUR_CALLS:
-        n, h, w = shape
+        _, h, w, n = shape  # b = 1: n planes, the channels
+        keep = n_vjp > 0  # the loss's term keeps its moments for the VJP, a level none
         x, y = torch.rand(shape, generator=g).to(dev), torch.rand(shape, generator=g).to(dev)
-        cts = [torch.randn(n, h - 10, w - 10, generator=g).to(dev) for _ in range(3)]
-        out, ref = sb.moments_forward(x, y, win), sb.ssim_moments_reference(x, y, win)
-        dx, ref_dx = sb.moments_vjp(*cts, x, y, win), sb.moments_vjp_reference(*cts, x, y, win)
+        g_s, g_c = (torch.randn(1, n, generator=g).to(dev) for _ in range(2))
+        s, c, moments = sb.stats_forward(x, y, win, c1, c2, keep_moments=keep)
+        again = sb.stats_forward(x, y, win, c1, c2, keep_moments=keep)
+        ref_s, ref_c = sb.ssim_stats_reference(x, y, win, c1, c2)
+        ref_moments = sb.ssim_moments_reference(sb.planes(x), sb.planes(y), win)
         torch.cuda.synchronize()
-        # forward: the kernel runs the plain version's rounded multiplies and
-        # adds in its order, the products x*x, y*y, x*y included: equal bits
-        err = max((a - r).abs().max().item() for a, r in zip(out, ref))
-        vjp_err = (dx - ref_dx).abs().max().item()
-        vjp_tol = K5_VJP_RTOL * ref_dx.abs().max().item()
-        ok = all(torch.equal(a, r) for a, r in zip(out, ref)) and vjp_err <= vjp_tol
-        ms = cuda_ms(lambda: sb.moments_forward(x, y, win))
-        device_ms = kernel_device_ms(lambda: sb.moments_forward(x, y, win), "blur_tiles")
-        plain_ms = cuda_ms(lambda: sb.ssim_moments_reference(x, y, win))
-        vjp_ms = cuda_ms(lambda: sb.moments_vjp(*cts, x, y, win)) if n_vjp else 0.0
-        vjp_device_ms = (kernel_device_ms(lambda: sb.moments_vjp(*cts, x, y, win), "blur_tiles")
-                         if n_vjp else 0.0)
-        vjp_plain_ms = (cuda_ms(lambda: sb.moments_vjp_reference(*cts, x, y, win))
-                        if n_vjp else 0.0)
+        # the means: the plain formula's maps to the bit, summed per block
+        # and then by blocks; two launches give the same bits
+        err = max((s - ref_s).abs().max().item(), (c - ref_c).abs().max().item())
+        same_bits = torch.equal(s, again[0]) and torch.equal(c, again[1])
+        # the kept moments: the plain blurs' bits
+        moments_ok = not keep or all(torch.equal(m, r) for m, r in zip(moments, ref_moments))
+        vjp_err = vjp_tol = 0.0
+        if n_vjp:
+            dx = sb.stats_vjp(moments, g_s, g_c, x, y, win, c1, c2)
+            dy = sb.stats_vjp(sb._paired(moments), g_s, g_c, y, x, win, c1, c2)
+            refs = (sb.stats_vjp_reference(ref_moments, g_s, g_c, x, y, win, c1, c2),
+                    sb.stats_vjp_reference(sb._paired(ref_moments), g_s, g_c, y, x, win, c1, c2))
+            torch.cuda.synchronize()
+            vjp_err = max((d - r).abs().max().item() for d, r in zip((dx, dy), refs))
+            vjp_tol = K5_VJP_RTOL * max(r.abs().max().item() for r in refs)
+        ok = err <= K5_MEAN_TOL and same_bits and moments_ok and vjp_err <= vjp_tol
+        fwd = lambda: sb.stats_forward(x, y, win, c1, c2, keep_moments=keep)  # noqa: E731
+        vjp = lambda: sb.stats_vjp(moments, g_s, g_c, x, y, win, c1, c2)  # noqa: E731
+        ms = cuda_ms(fwd)
+        device_ms = kernel_device_ms(fwd, "blur_tiles")
+        plain_ms = cuda_ms(lambda: sb.ssim_stats_reference(x, y, win, c1, c2))
+        vjp_ms = cuda_ms(vjp) if n_vjp else 0.0
+        vjp_device_ms = kernel_device_ms(vjp, "blur_tiles") if n_vjp else 0.0
+        vjp_plain_ms = (cuda_ms(lambda: sb.stats_vjp_reference(ref_moments, g_s, g_c, x, y, win,
+                                                               c1, c2)) if n_vjp else 0.0)
         # the library's one call for the same moments: a depthwise F.conv2d
         # (groups = channels) with the 11 x 11 outer product of the window,
-        # VALID, on the five stacked maps x, y, x*x, y*y, x*y (TF32 off);
-        # only the conv is timed, not the stacking
-        maps = torch.stack([x, y, x * x, y * y, x * y]).reshape(1, 5 * n, h, w)
+        # VALID, on the five stacked maps x, y, x*x, y*y, x*y of the planes
+        # (TF32 off); only the conv is timed, not the stacking, and it forms
+        # neither the SSIM formula nor the means
+        xp, yp = sb.planes(x), sb.planes(y)
+        maps = torch.stack([xp, yp, xp * xp, yp * yp, xp * yp]).reshape(1, 5 * n, h, w)
         taps = torch.tensor(win, dtype=torch.float32, device=dev)
         kernel2d = torch.outer(taps, taps).expand(5 * n, 1, len(win), len(win)).contiguous()
         lib_out = F.conv2d(maps, kernel2d, groups=5 * n).reshape(5, n, h - 10, w - 10)
-        lib_err = (lib_out - torch.stack(out)).abs().max().item()
+        lib_err = (lib_out - torch.stack(ref_moments)).abs().max().item()
         lib_ms = cuda_ms(lambda: F.conv2d(maps, kernel2d, groups=5 * n))
-        del maps, lib_out
-        # bounds on the fused calls' own bytes: x and y read once and five maps
-        # written; the three cotangents, x and y read and d_x written
-        fwd_bound = roofline(blur_ops(n, h, w, w - 10, h - 10, 5), nbytes(x, y, *out), "f32")
-        vjp_bound = roofline(blur_ops(n, h + 10, w - 10, w, h, 3), nbytes(*cts, x, y, dx), "f32")
+        del maps, lib_out, xp, yp
+        # bounds on the calls' own bytes: x and y read once, the [2, N, tiles]
+        # partial sums written, the five moments written only when kept; for
+        # the VJP the five moments, x and y and the two upstream [1, C] read
+        # and d_x written.  Operations: the blurs, x*x, y*y, x*y a pixel, the
+        # SSIM / cs formula and both sums (19 an output pixel); the VJP's
+        # cotangents in its loader (31 a moment pixel) and its combine (5 an
+        # image value)
+        ho, wo = h - 10, w - 10
+        fwd_bytes = nbytes(x, y, *(moments if keep else ())) + 2 * n * sb.stats_tiles(h, w, 11) * 4
+        vjp_bytes = nbytes(*ref_moments, g_s, g_c, x, y) + nbytes(x)  # d_x: x's size
+        fwd_bound = roofline(blur_ops(n, h, w, wo, ho, 5) + 3.0 * n * h * w + 19.0 * n * ho * wo,
+                             fwd_bytes, "f32")
+        vjp_bound = roofline(blur_ops(n, h + 10, wo, w, h, 3) + 31.0 * n * ho * wo
+                             + 5.0 * n * h * w, vjp_bytes, "f32")
         k5_bound = sum_bounds([fwd_bound] * n_fwd + [vjp_bound] * n_vjp)
-        log(f"[train-kernels] K5 float32  {name:12s} x, y {list(shape)} -> 5 x {list(out[0].shape)}"
-            f": max|d|={err:.3e} (tol 0, bitwise), VJP max|d|={vjp_err:.3e} (tol {vjp_tol:.3e} = "
-            f"{K5_VJP_RTOL:g} max|ref|) kernel {ms:.3f} ms a call (VJP {vjp_ms:.3f}), {device_ms:.3f} "
-            f"(VJP {vjp_device_ms:.3f}) on the card, plain "
-            f"{plain_ms:.3f} ms (VJP {vjp_plain_ms:.3f}), bound {fwd_bound['bound_ms']:.4f} ms "
-            f"({fwd_bound['bound_by']}; VJP {vjp_bound['bound_ms']:.4f}), library (depthwise "
-            f"F.conv2d on the 5 stacked maps) {lib_ms:.3f} ms, max|d| against the kernel "
-            f"{lib_err:.3e} {'ok' if ok else 'FAIL'}")
+        vjp_note = (f"; VJP d_x, d_y max|d|={vjp_err:.3e} (tol {vjp_tol:.3e} = {K5_VJP_RTOL:g} "
+                    f"max|ref|), {vjp_ms:.3f} ms a call, {vjp_device_ms:.4f} on the card, plain "
+                    f"{vjp_plain_ms:.3f}, bound {vjp_bound['bound_ms']:.4f} "
+                    f"({vjp_bound['bound_by']})" if n_vjp else "")
+        log(f"[train-kernels] K5 float32  {name:12s} x, y {list(shape)} -> means [1, {n}]"
+            f"{' and 5 x ' + str(list(moments[0].shape)) if keep else ''}: means max|d|={err:.3e} "
+            f"(tol {K5_MEAN_TOL:g}), two launches {'equal' if same_bits else 'DIFFER'}, moments "
+            f"{'bitwise' if keep and moments_ok else 'DIFFER' if keep else 'not written'}; "
+            f"kernel {ms:.3f} ms a call, {device_ms:.4f} on the card, plain {plain_ms:.3f} ms, "
+            f"bound {fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}), library (depthwise "
+            f"F.conv2d on the 5 stacked maps) {lib_ms:.3f} ms, max|d| against the plain moments "
+            f"{lib_err:.3e}{vjp_note} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K5 disagrees with its plain version at {name}")
         rows["K5"].append({
-            "shape": name, "dtype": "float32", "max_abs_err": err, "tol": 0.0,
+            "shape": name, "dtype": "float32", "max_abs_err": err, "tol": K5_MEAN_TOL,
+            "kept_moments": keep, "two_launches_equal": same_bits,
             "vjp_max_abs_err": vjp_err, "vjp_tol": vjp_tol,
             "ms": ms, "plain_ms": plain_ms, "vjp_ms": vjp_ms, "vjp_plain_ms": vjp_plain_ms,
-            # this shape's share of one training step's blurs
+            # this shape's share of one training step's K5 launches
             "step_ms": n_fwd * ms + n_vjp * vjp_ms,
             "device_ms": device_ms, "vjp_device_ms": vjp_device_ms,
             "step_device_ms": n_fwd * device_ms + n_vjp * vjp_device_ms,
             "step_plain_ms": n_fwd * plain_ms + n_vjp * vjp_plain_ms,
             "calls_per_step": n_fwd + n_vjp,
+            "fwd_bytes": fwd_bytes, "vjp_bytes": vjp_bytes if n_vjp else 0,
             **k5_bound,  # of this shape's calls of one step
-            # the library call for this shape's moments launches of one step
+            # the library call for this shape's moments, once a stats launch
             "library_ms": n_fwd * lib_ms, "library_max_abs_err": lib_err,
             "forward_step_ms": n_fwd * ms,
         })
-        del out, ref, dx, ref_dx, cts
+        del s, c, again, moments, ref_moments
     # the single-map blur (gauss_blur_valid and its VJP), no longer on the
     # step's path: same inner loops, held to the bit at the loss's shape
     ct = torch.randn(3, 710, 1270, generator=g).to(dev)
@@ -3137,11 +3178,12 @@ def phase_profiler_probe() -> dict:
     p = dk.pack_weights(wt, torch.zeros(c * s * s, device=dev), s, torch.float32)
     out, z = tt.stage_forward(x, p, "swish", "tanh")
     ct = torch.randn(out.shape, generator=g).to(dev)
-    img = torch.rand(1, 720, 1280, generator=g).to(dev)
+    img = torch.rand(1, 720, 1280, 1, generator=g).to(dev)
     win = sb.window_tuple(11, 1.5)
     probes = {"K4": (lambda: tt.epilogue_backward(z, ct, None, None, s, "swish", "tanh"),
                      "epilogue_bwd"),
-              "K5": (lambda: sb.moments_forward(img, img, win), "blur_tiles")}
+              "K5": (lambda: sb.stats_forward(img, img, win, SSIM_C1, SSIM_C2, False),
+                     "blur_tiles")}
     out_rows = {}
     for name, (fn, fragment) in probes.items():
         launched, seen = profile_kernels(fn, fragment)
@@ -3542,22 +3584,23 @@ def main() -> None:
             })
     rows = train_rows["K5"]
     kernels.append({
-        "name": "ssim_moments[float32]", "route": "cuda",
+        "name": "ssim_stats[float32]", "route": "cuda",
         "source": "repnerv_tpu_torch/csrc/ssim_blur.cu",
         "replaces": "repnerv_tpu/pallas_kernels/ssim_blur.py:43",
         "launches": sum(train[d]["launches"]["K5"] for d in ("bfloat16", "float32", "mixed")),
         "profile_launches": profile["launches"]["K5"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # the 7 launches of one training step (the loss's moments and their
-        # VJP, the MS-SSIM metric's five levels)
+        # the 7 launches of one training step (the loss's means with the
+        # moments kept and their VJP, the MS-SSIM metric's five levels)
         "ms": sum(r["step_ms"] for r in rows),
         "plain_ms": sum(r["step_plain_ms"] for r in rows),
         **yardsticks(rows),
         "device_ms": sum(r["step_device_ms"] for r in rows),
         "vjp_max_abs_err": max(r["vjp_max_abs_err"] for r in rows),
-        # library_ms is the depthwise F.conv2d of each of the 6 moments launches
-        # of a step (the loss's and the 5 MS-SSIM levels'); forward_ms the
-        # kernel's time for the same 6; the VJP launch has no library call
+        # library_ms is the depthwise F.conv2d of the moments of each of the 6
+        # stats launches of a step (the loss's and the 5 MS-SSIM levels');
+        # forward_ms the kernel's time for the same 6; the VJP launch has no
+        # library call
         "forward_ms": sum(r["forward_step_ms"] for r in rows),
         "library_max_abs_err": max(r["library_max_abs_err"] for r in rows),
         "shapes": rows,
@@ -3601,7 +3644,7 @@ def main() -> None:
                f"{k['wgmma_rows_fma_max_abs_err']:.3e})" if "wgmma_rows_fma_ms" in k else "")
             + (f", the bf16 wgmma kernel {k['bf16_kernel_ms']:.3f} ms" if "bf16_kernel_ms" in k
                else "")
-            + (f"; library ms of the {k['forward_ms']:.3f} ms of moments launches (max|d| "
+            + (f"; library ms of the {k['forward_ms']:.3f} ms of stats launches (max|d| "
                f"{k['library_max_abs_err']:.3e})" if "forward_ms" in k else ""))
     log("[train] summary " + json.dumps(train))
     log("[compress] summary " + json.dumps(compress))

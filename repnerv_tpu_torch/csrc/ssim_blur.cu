@@ -1,6 +1,7 @@
 // Separable gaussian blur on [N, H, W] f32 for SSIM / MS-SSIM, for Hopper
-// (sm_90a): the five blurred moments of an SSIM term in one launch, their
-// VJP in one launch, and the single-map blur.
+// (sm_90a): an SSIM term's per-plane SSIM and cs means in one launch (the
+// five blurred moments formed, and kept only for a backward), their VJP in one
+// launch, and the single-map blur.
 //
 // Replaces the TPU kernel repnerv_tpu/pallas_kernels/ssim_blur.py::_blur_call
 // (gauss_blur_valid).  out[n, r, c] = sum_j w[j] * (sum_i w[i] * x[n, r+i, c+j]),
@@ -14,11 +15,12 @@
 // filter(x*x) - mu^2 below -C2 and blow up the loss gradient.
 //
 // What bounds it: the instructions, not the bytes.  An SSIM term reads x and
-// y and writes five maps (28 bytes a pixel: 0.023 ms at 720p at an H100's 3.35
-// TB/s) against ~200 rounded multiplies and adds a pixel, none of which exact
-// f32 lets one merge or drop: the launch takes 0.051 ms there, and 0.033 ms
-// with no load at all.  So the design spends no instruction it can save:
-//   * One launch makes all five maps: x*x, y*y and x*y are formed in
+// y and, for a backward, writes five maps (28 bytes a pixel at most: 0.023 ms
+// at 720p at an H100's 3.35 TB/s) against ~200 rounded multiplies and adds a
+// pixel, none of which exact f32 lets one merge or drop: a launch that
+// writes the five maps takes 0.051 ms there, and 0.033 ms with no load at
+// all.  So the design spends no instruction it can save:
+//   * One launch blurs all five moments: x*x, y*y and x*y are formed in
 //     registers (__fmul_rn, as the plain version's elementwise products) and
 //     never cross device memory.
 //   * A block owns a TH x TW output tile.  Vertical pass: a thread owns one
@@ -39,6 +41,18 @@
 //     cotangent with zeros.  The moments' VJP blurs the three cotangents that
 //     reach one input and combines them in the store pass,
 //     d_a = B(g_mu) + 2 a B(g_sq) + b B(g_ab).
+//   * The SSIM formula runs where the moments are in registers.  The forward
+//     (SsimStats) reads the NHWC images in place (plane n = channel n % C),
+//     forms sigma, cs and ssim per pixel in the store pass, with
+//     the rounded operations of the plain formula (ops/ssim.py), and sums
+//     both per block in a fixed order (each thread's pixels in its loop
+//     order, then the lanes of a warp by shuffles, then the warps in order):
+//     no float atomics, so a launch gives the same bits every time.  Each
+//     block writes its two sums over H*W; the caller adds a plane's blocks.
+//     The backward (SsimGrad) forms the three cotangents of the moments in
+//     the loader, from the five saved moments and the plane's two upstream
+//     scalars, runs the moments' VJP on them, and writes the gradient in the
+//     images' layout.
 
 #include <cuda_runtime.h>
 
@@ -93,55 +107,154 @@ __device__ __forceinline__ float fetch(const float* p, long long plane, int off,
 #endif
 }
 
-// The five moments of an SSIM term from x and y.
-struct MomentsForward {
+// d_a = B(g_mu) + 2 a B(g_sq) + b B(g_ab) from the blurred cotangents v: the
+// store pass of the moments' VJP.
+__device__ __forceinline__ float combine(const float* a, const float* b, long long at,
+                                         const float (&v)[3]) {
+  const float av = __ldg(a + at), bv = __ldg(b + at);
+  const float sq = __fmul_rn(2.f, __fmul_rn(v[1], av));  // g*a + g*a, exactly
+  return __fadd_rn(__fadd_rn(v[0], sq), __fmul_rn(v[2], bv));
+}
+
+// Where an SSIM term's inputs lie: [N / C, H, W, C] images, plane n their
+// channel n % C (C = 1: [N, H, W] planes), read and written in place.
+__device__ __forceinline__ long long image_base(int channels, long long plane_size) {
+  return blockIdx.z / channels * plane_size * channels + blockIdx.z % channels;
+}
+
+// The per-plane means of the SSIM and cs maps of images x and y, as
+// [2, N, tiles] partial sums over Ho*Wo, one a block; with `moments` not null,
+// the five moments too ([5, N, Ho, Wo] planes, for the backward).
+struct SsimStats {
   static constexpr int MAPS = 5;
   const float* x;
   const float* y;
-  float* out;  // [5, N, Ho, Wo]
-  __device__ __forceinline__ void load(long long plane_in, int off, bool inside,
-                                       float (&v)[MAPS]) const {
-    const float a = fetch(x, plane_in, off, inside), b = fetch(y, plane_in, off, inside);
+  float* moments;  // null: the maps are not stored
+  float* partial;  // [2, N, tiles]
+  int channels;
+  float c1, c2, hw;
+  long long base;          // this plane's first value in x and y
+  float ssim_sum, cs_sum;  // this thread's pixels
+  __device__ __forceinline__ void begin(long long hw_in, long long) {
+    base = image_base(channels, hw_in);
+    ssim_sum = cs_sum = 0.f;
+  }
+  __device__ __forceinline__ void load(long long, int off, bool inside, float (&v)[MAPS]) const {
+    const float a = fetch(x, base, off * channels, inside);
+    const float b = fetch(y, base, off * channels, inside);
     v[0] = a;
     v[1] = b;
     v[2] = __fmul_rn(a, a);
     v[3] = __fmul_rn(b, b);
     v[4] = __fmul_rn(a, b);
   }
+  // The plain formula's operations, each rounded on its own:
+  // cs = (2 s12 + C2) / (s11 + s22 + C2), ssim = (2 m12 + C1) / (m11 + m22 + C1) * cs.
   __device__ __forceinline__ void store(long long plane_out, long long map_stride, int off,
-                                        const float (&v)[MAPS]) const {
+                                        const float (&v)[MAPS]) {
+    if (moments != nullptr) {
 #pragma unroll
-    for (int m = 0; m < MAPS; ++m) out[m * map_stride + plane_out + off] = v[m];
+      for (int m = 0; m < MAPS; ++m) moments[m * map_stride + plane_out + off] = v[m];
+    }
+    const float m11 = __fmul_rn(v[0], v[0]), m22 = __fmul_rn(v[1], v[1]),
+                m12 = __fmul_rn(v[0], v[1]);
+    const float s11 = __fsub_rn(v[2], m11), s22 = __fsub_rn(v[3], m22), s12 = __fsub_rn(v[4], m12);
+    const float cs = __fdiv_rn(__fadd_rn(__fmul_rn(2.f, s12), c2),
+                               __fadd_rn(__fadd_rn(s11, s22), c2));
+    const float lum = __fdiv_rn(__fadd_rn(__fmul_rn(2.f, m12), c1),
+                                __fadd_rn(__fadd_rn(m11, m22), c1));
+    ssim_sum = __fadd_rn(ssim_sum, __fmul_rn(lum, cs));
+    cs_sum = __fadd_rn(cs_sum, cs);
+  }
+  // The block's two sums in a fixed order; `scratch` is the tile's shared
+  // memory, free once every thread has stored.
+  __device__ __forceinline__ void finish(float* scratch) {
+    float s = ssim_sum, c = cs_sum;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, o));
+      c = __fadd_rn(c, __shfl_down_sync(0xffffffffu, c, o));
+    }
+    __syncthreads();  // the store pass has read the tile
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    if (lane == 0) {
+      scratch[2 * warp] = s;
+      scratch[2 * warp + 1] = c;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < WARPS; ++w) {
+        s = __fadd_rn(s, scratch[2 * w]);
+        c = __fadd_rn(c, scratch[2 * w + 1]);
+      }
+      const long long tiles = (long long)gridDim.x * gridDim.y;
+      const long long at = blockIdx.z * tiles + blockIdx.y * gridDim.x + blockIdx.x;
+      partial[at] = __fdiv_rn(s, hw);
+      partial[gridDim.z * tiles + at] = __fdiv_rn(c, hw);
+    }
   }
 };
 
-// The VJP of the moments with respect to one input a (b the other):
-// d_a = B(g_mu) + 2 a B(g_sq) + b B(g_ab), B the zero-padded blur.
-struct MomentsVjp {
+// The VJP of the per-plane means g_ssim[n] * mean(ssim) + g_cs[n] * mean(cs)
+// with respect to one input image a (b the other; mu_a .. e_ab the saved
+// moments of the pair in that order).  The loader forms the cotangents of
+// blur(a), blur(a*a) and blur(a*b) from the moments; zero outside them, as
+// the padding.
+struct SsimGrad {
   static constexpr int MAPS = 3;
-  const float* g_mu;
-  const float* g_sq;
-  const float* g_ab;
+  const float* mu_a;
+  const float* mu_b;
+  const float* e_aa;
+  const float* e_bb;
+  const float* e_ab;  // [N, Hi, Wi] planes
+  const float* g_ssim;
+  const float* g_cs;  // [N]
   const float* a;
   const float* b;
-  float* d;  // [N, H, W]
+  float* d;  // images, as a
+  int channels;
+  float c1, c2, hw;
+  long long base;  // this plane's first value in a, b and d
+  float gs, gc;    // this plane's upstream scalars over hw
+  __device__ __forceinline__ void begin(long long, long long hw_out) {
+    base = image_base(channels, hw_out);
+    gs = __fdiv_rn(__ldg(g_ssim + blockIdx.z), hw);
+    gc = __fdiv_rn(__ldg(g_cs + blockIdx.z), hw);
+  }
+  __device__ __forceinline__ void finish(float*) {}
+  // With l = (2 m_ab + C1) / b1, cs = (2 s_ab + C2) / b2 and t = (gs l + gc) / b2:
+  // g_mu = 2 (gs cs (mu_b - l mu_a) / b1 + t (cs mu_a - mu_b)),
+  // g_sq = -t cs, g_ab = 2 t.
   __device__ __forceinline__ void load(long long plane_in, int off, bool inside,
                                        float (&v)[MAPS]) const {
-    v[0] = fetch(g_mu, plane_in, off, inside);
-    v[1] = fetch(g_sq, plane_in, off, inside);
-    v[2] = fetch(g_ab, plane_in, off, inside);
+    const float ma = fetch(mu_a, plane_in, off, inside), mb = fetch(mu_b, plane_in, off, inside);
+    const float eaa = fetch(e_aa, plane_in, off, inside), ebb = fetch(e_bb, plane_in, off, inside);
+    const float eab = fetch(e_ab, plane_in, off, inside);
+    const float m_aa = __fmul_rn(ma, ma), m_bb = __fmul_rn(mb, mb), m_ab = __fmul_rn(ma, mb);
+    const float b1 = __fadd_rn(__fadd_rn(m_aa, m_bb), c1);
+    const float b2 = __fadd_rn(__fadd_rn(__fsub_rn(eaa, m_aa), __fsub_rn(ebb, m_bb)), c2);
+    const float l = __fdiv_rn(__fadd_rn(__fmul_rn(2.f, m_ab), c1), b1);
+    const float cs = __fdiv_rn(__fadd_rn(__fmul_rn(2.f, __fsub_rn(eab, m_ab)), c2), b2);
+    const float t = __fdiv_rn(__fadd_rn(__fmul_rn(gs, l), gc), b2);
+    const float lum_part =
+        __fdiv_rn(__fmul_rn(__fmul_rn(gs, cs), __fsub_rn(mb, __fmul_rn(l, ma))), b1);
+    const float cs_part = __fmul_rn(t, __fsub_rn(__fmul_rn(cs, ma), mb));
+    v[0] = inside ? __fmul_rn(2.f, __fadd_rn(lum_part, cs_part)) : 0.f;
+    v[1] = inside ? -__fmul_rn(t, cs) : 0.f;
+    v[2] = inside ? __fmul_rn(2.f, t) : 0.f;
   }
-  __device__ __forceinline__ void store(long long plane_out, long long, int off,
+  __device__ __forceinline__ void store(long long, long long, int off,
                                         const float (&v)[MAPS]) const {
-    const float av = __ldg(a + plane_out + off), bv = __ldg(b + plane_out + off);
-    const float sq = __fmul_rn(2.f, __fmul_rn(v[1], av));  // g*a + g*a, exactly
-    d[plane_out + off] = __fadd_rn(__fadd_rn(v[0], sq), __fmul_rn(v[2], bv));
+    const long long at = base + (long long)off * channels;
+    d[at] = combine(a, b, at, v);
   }
 };
 
 // One map: gauss_blur_valid and, with pad = K-1, its VJP.
 struct SingleMap {
   static constexpr int MAPS = 1;
+  __device__ __forceinline__ void begin(long long, long long) {}
+  __device__ __forceinline__ void finish(float*) {}
   const float* x;
   float* out;
   __device__ __forceinline__ void load(long long plane_in, int off, bool inside,
@@ -166,6 +279,7 @@ blur_tiles(Op op, int Hi, int Wi, int Ho, int Wo, int pad, Window win) {
   const int r0 = blockIdx.y * TH, c0 = blockIdx.x * G::TW;
   const long long plane_in = (long long)blockIdx.z * Hi * Wi;
   const long long plane_out = (long long)blockIdx.z * Ho * Wo;
+  op.begin((long long)Hi * Wi, (long long)Ho * Wo);  // an Op's own work once a block, if any
 
   {  // vertical pass: thread = (half of the rows, column)
     const int col = tid % COLS, half = tid / COLS;
@@ -217,6 +331,7 @@ blur_tiles(Op op, int Hi, int Wi, int Ho, int Wo, int pad, Window win) {
       op.store(plane_out, map_stride, (r0 + r) * Wo + c0 + c, v);
     }
   }
+  op.finish(vert);  // after every thread's stores; vert is free
 }
 
 template <int K, class Op>
@@ -263,21 +378,43 @@ int launch(const Op& op, int N, int Hi, int Wi, int pad, const float* window, in
 
 }  // namespace
 
-// x, y [N, H, W] f32 -> out [5, N, H-K+1, W-K+1] f32: the VALID blurs of x, y,
-// x*x, y*y, x*y.  `window`: K = size host floats.  All entry points return the
-// cudaError_t of the launch.
-extern "C" int repnerv_ssim_moments(const float* x, const float* y, float* out, int N, int H,
-                                    int W, const float* window, int size, void* stream) {
-  return launch(MomentsForward{x, y, out}, N, H, W, 0, window, size, stream);
+// All entry points return the cudaError_t of the launch; `window`: K = size
+// host floats.
+
+// x, y [N / C, H, W, C] f32 images (C = channels; N planes, plane n channel
+// n % C) -> partial [2, N, tiles] f32: each block's sums of the SSIM map and
+// of the cs map over (H-K+1)(W-K+1), so that a plane's blocks add up to its
+// two means; moments: null, or [5, N, H-K+1, W-K+1], the VALID blurs of the
+// planes' x, y, x*x, y*y, x*y.  c1, c2: the SSIM constants.  `tiles`, the
+// caller's count of a plane's blocks, has to be the launch's:
+// ceil((W-K+1) / (COLS-K+1)) * ceil((H-K+1) / TH).
+extern "C" int repnerv_ssim_stats(const float* x, const float* y, float* moments, float* partial,
+                                  int N, int H, int W, int channels, int tiles,
+                                  const float* window, int size, float c1, float c2,
+                                  void* stream) {
+  const int ho = H - size + 1, wo = W - size + 1, tw = COLS - (size - 1);  // Geometry<size>::TW
+  if (channels < 1 || N % channels != 0 || ho < 1 || wo < 1 ||
+      tiles != ((wo + tw - 1) / tw) * ((ho + TH - 1) / TH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float hw = static_cast<float>(static_cast<long long>(ho) * wo);
+  return launch(SsimStats{x, y, moments, partial, channels, c1, c2, hw}, N, H, W, 0, window, size,
+                stream);
 }
 
-// Cotangents g_mu, g_sq, g_ab [N, H-K+1, W-K+1] of blur(a), blur(a*a),
-// blur(a*b); a, b [N, H, W] -> d [N, H, W], the gradient with respect to a.
-extern "C" int repnerv_ssim_moments_vjp(const float* g_mu, const float* g_sq, const float* g_ab,
-                                        const float* a, const float* b, float* d, int N, int H,
-                                        int W, const float* window, int size, void* stream) {
-  return launch(MomentsVjp{g_mu, g_sq, g_ab, a, b, d}, N, H - (size - 1), W - (size - 1),
-                size - 1, window, size, stream);
+// The moments mu_a, mu_b, e_aa, e_bb, e_ab [N, H-K+1, W-K+1] of a pair of
+// inputs (a first) as repnerv_ssim_stats keeps them, the cotangents g_ssim,
+// g_cs [N] of its two means; a, b [N / C, H, W, C] images -> d, the gradient
+// with respect to a, in their layout.
+extern "C" int repnerv_ssim_stats_vjp(const float* mu_a, const float* mu_b, const float* e_aa,
+                                      const float* e_bb, const float* e_ab, const float* g_ssim,
+                                      const float* g_cs, const float* a, const float* b, float* d,
+                                      int N, int H, int W, int channels, const float* window,
+                                      int size, float c1, float c2, void* stream) {
+  if (channels < 1 || N % channels != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int hi = H - (size - 1), wi = W - (size - 1);
+  const float hw = static_cast<float>(static_cast<long long>(hi) * wi);
+  return launch(SsimGrad{mu_a, mu_b, e_aa, e_bb, e_ab, g_ssim, g_cs, a, b, d, channels, c1, c2, hw},
+                N, hi, wi, size - 1, window, size, stream);
 }
 
 // x [N, H, W] f32 -> out [N, H-K+1, W-K+1] (full = 0: the VALID blur) or

@@ -106,7 +106,7 @@ def load_library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             # route, x, w, wt, b, head_w, head_b, out, B, H, W, Cin, C, s, act,
             # c_final, sigmoid_squash, stream
             lib.repnerv_fused_conv_ps_act.argtypes = [i, *[p] * 7, *[i] * 9, p]
@@ -121,12 +121,14 @@ def load_library() -> ctypes.CDLL:
             # dtype, B, H, W, C, s, c_final -> f32 values of workspace
             lib.repnerv_train_stage_bwd_workspace.argtypes = [i] * 7
             lib.repnerv_train_stage_bwd_workspace.restype = ctypes.c_longlong
-            # x, y, out, N, H, W, window (host f32[size]), size, stream
-            lib.repnerv_ssim_moments.argtypes = [p, p, p, i, i, i, p, i, p]
-            # g_mu, g_sq, g_ab, a, b, d, N, H, W, window, size, stream
-            lib.repnerv_ssim_moments_vjp.argtypes = [*[p] * 6, i, i, i, p, i, p]
-            # x, out, N, H, W, window, size, full, stream
+            # x, out, N, H, W, window (host f32[size]), size, full, stream
             lib.repnerv_gauss_blur_valid.argtypes = [p, p, i, i, i, p, i, i, p]
+            # x, y, moments (or null), partial, N, H, W, C, tiles, window, size,
+            # c1, c2, stream
+            lib.repnerv_ssim_stats.argtypes = [*[p] * 4, *[i] * 5, p, i, f, f, p]
+            # mu_a, mu_b, e_aa, e_bb, e_ab, g_ssim, g_cs, a, b, d, N, H, W, C,
+            # window, size, c1, c2, stream
+            lib.repnerv_ssim_stats_vjp.argtypes = [*[p] * 10, i, i, i, i, p, i, f, f, p]
             # stream -> kernel, memset and memcpy nodes of the graph it is
             # capturing into; -1 when it captures none, -2 on an error
             lib.repnerv_capture_nodes.argtypes = [p]
@@ -136,9 +138,9 @@ def load_library() -> ctypes.CDLL:
                 lib.repnerv_train_stage_fwd,
                 lib.repnerv_fused_conv_ps_act_int8,
                 lib.repnerv_train_stage_bwd,
-                lib.repnerv_ssim_moments,
-                lib.repnerv_ssim_moments_vjp,
                 lib.repnerv_gauss_blur_valid,
+                lib.repnerv_ssim_stats,
+                lib.repnerv_ssim_stats_vjp,
             ):
                 fn.restype = i
             _LIB = lib

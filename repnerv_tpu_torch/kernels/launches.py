@@ -4,11 +4,11 @@ Each kernel wrapper adds one to a module-level count where it launches its
 kernel: ``decode.LAUNCHES`` and ``ROUTE_LAUNCHES`` (K1),
 ``decode_int8.LAUNCHES`` and ``ROUTE_LAUNCHES`` (K2),
 ``train_tail.FWD_LAUNCHES``, ``FWD_ROUTE_LAUNCHES`` (K3) and
-``BWD_LAUNCHES`` (K4), ``ssim_blur.LAUNCHES`` (K5).  A CUDA graph's capture
-calls the wrappers without running a kernel, and its replay runs the kernels
-without calling a wrapper: the code that captures a graph takes the
-capture's counts back (``add(counts, -1)``) and adds them at every replay
-(``add(counts)``), so the counts stay the kernels that ran.
+``BWD_LAUNCHES`` (K4), ``ssim_blur.LAUNCHES`` and ``ROUTE_LAUNCHES`` (K5).
+A CUDA graph's capture calls the wrappers without running a kernel, and its
+replay runs the kernels without calling a wrapper: the code that captures a
+graph takes the capture's counts back (``add(counts, -1)``) and adds them at
+every replay (``add(counts)``), so the counts stay the kernels that ran.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ _COUNTERS = (
     (train_tail, "FWD_ROUTE_LAUNCHES"),
     (train_tail, "BWD_LAUNCHES"),
     (ssim_blur, "LAUNCHES"),
+    (ssim_blur, "ROUTE_LAUNCHES"),
 )
 
 Counts = Dict[Tuple[str, str], Union[int, Dict[str, int]]]

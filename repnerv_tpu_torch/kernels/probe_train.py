@@ -14,7 +14,8 @@ Variants of k4 (each in bf16 and f32, swish, blocks 1-4, block 4 with the head):
   u2, u8     2 / 8 vectors a thread in flight instead of 4
   bps1, bps4 1 / 4 blocks per SM in the persistent grid instead of 2
   no_tail    without the last block's sum of the blocks' rows (wrong sums)
-Variants of k5 (the loss's shape [3, 720, 1280]: moments, their VJP, one map):
+Variants of k5 (the loss's image [1, 720, 1280, 3]: the SSIM means alone, the
+means with the moments kept, their VJP, and one map):
   kernel         the kernel as the port runs it
   no_horizontal  the column pass and the stores only
   no_loads       values made up in registers instead of loaded: the arithmetic,
@@ -64,7 +65,7 @@ SOURCES = {"k4": "train_tail.cu", "k5": "ssim_blur.cu"}
 # (name, H, W, C, stride, head width) of the fused stages at -b 1
 K4_SHAPES = [("block1", 45, 80, 96, 2, 0), ("block2", 90, 160, 96, 2, 0),
              ("block3", 180, 320, 96, 2, 0), ("block4+head", 360, 640, 96, 2, 3)]
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def build_variants(kind: str, names) -> dict:
@@ -93,8 +94,8 @@ def build_variants(kind: str, names) -> dict:
             lib.repnerv_train_stage_bwd_workspace.argtypes = [I] * 7
             lib.repnerv_train_stage_bwd_workspace.restype = ctypes.c_longlong
         else:
-            lib.repnerv_ssim_moments.argtypes = [P, P, P, I, I, I, P, I, P]
-            lib.repnerv_ssim_moments_vjp.argtypes = [*[P] * 6, I, I, I, P, I, P]
+            lib.repnerv_ssim_stats.argtypes = [*[P] * 4, *[I] * 5, P, I, F, F, P]
+            lib.repnerv_ssim_stats_vjp.argtypes = [*[P] * 10, I, I, I, I, P, I, F, F, P]
             lib.repnerv_gauss_blur_valid.argtypes = [P, P, I, I, I, P, I, I, P]
         libs[name] = lib
     return libs
@@ -164,28 +165,39 @@ def probe_k4(libs: dict) -> None:
 
 
 def probe_k5(libs: dict) -> None:
-    from .ssim_blur import window_tuple
+    from .ssim_blur import TILE_COLS, TILE_ROWS, window_tuple
 
     gen = torch.Generator().manual_seed(0)
     win = window_tuple(11, 1.5)
     taps = (ctypes.c_float * 11)(*win)
     tp = ctypes.cast(taps, P)
+    c1, c2 = 0.01**2, 0.03**2
     n, h, w = 3, 720, 1280
-    x, y = torch.rand(n, h, w, generator=gen).cuda(), torch.rand(n, h, w, generator=gen).cuda()
-    g = [torch.randn(n, h - 10, w - 10, generator=gen).cuda() for _ in range(3)]
-    out = torch.empty(5, n, h - 10, w - 10, device="cuda")
+    x, y = torch.rand(1, h, w, n, generator=gen).cuda(), torch.rand(1, h, w, n, generator=gen).cuda()
+    mom = torch.empty(5, n, h - 10, w - 10, device="cuda")
+    g = torch.randn(2, n, generator=gen).cuda()
     d = torch.empty_like(x)
     one = torch.empty(n, h - 10, w - 10, device="cuda")
-    plane, small = n * h * w * 4, n * (h - 10) * (w - 10) * 4
+    image, small = n * h * w * 4, n * (h - 10) * (w - 10) * 4
     for name, lib in libs.items():
+        tw = (64 if name == "cols64" else TILE_COLS) - 10  # the variant's output columns a block
+        tiles = -(-(w - 10) // tw) * -(-(h - 10) // TILE_ROWS)
+        partial = torch.empty(2, n, tiles, device="cuda")
+
+        def stats(keep):
+            return lib.repnerv_ssim_stats(addr(x), addr(y), addr(mom if keep else None),
+                                          addr(partial), n, h, w, n, tiles, tp, 11, c1, c2,
+                                          stream())
+
         calls = {
-            "moments": (lambda: lib.repnerv_ssim_moments(addr(x), addr(y), addr(out), n, h, w, tp,
-                                                         11, stream()), 2 * plane + 5 * small),
-            "moments VJP": (lambda: lib.repnerv_ssim_moments_vjp(
-                addr(g[0]), addr(g[1]), addr(g[2]), addr(x), addr(y), addr(d), n, h, w, tp, 11,
-                stream()), 3 * small + 3 * plane),
+            "stats": (lambda: stats(False), 2 * image),
+            "stats_grad": (lambda: stats(True), 2 * image + 5 * small),
+            "stats VJP": (lambda: lib.repnerv_ssim_stats_vjp(
+                *[addr(m) for m in mom], addr(g[0]), addr(g[1]), addr(x), addr(y), addr(d),
+                n, h, w, n, tp, 11, c1, c2, stream()), 5 * small + 3 * image),
+            # x's values as [n, h, w] planes
             "one map": (lambda: lib.repnerv_gauss_blur_valid(addr(x), addr(one), n, h, w, tp, 11,
-                                                             0, stream()), plane + small),
+                                                             0, stream()), image + small),
         }
         for what, (call, moved) in calls.items():
             ms = cuda_ms(lambda: checked(call(), f"{name} {what}"))

@@ -6,11 +6,13 @@ an 11-tap sigma 1.5 separable gaussian, VALID; C1 = (0.01 L)^2, C2 =
 5 levels with relu on the intermediate ``cs`` values and 2x2 average-pool
 downsampling with zero padding on odd sides (``count_include_pad``).
 
-Images flatten once to [B*C, H, W] (the layout of the JAX package's Pallas
-path, ``_ssim_maps_pallas``) and the five blurs of an SSIM term, of x, y,
-x*x, y*y and x*y, are one call of ``kernels/ssim_blur.ssim_moments``: one
-launch of the hand-written kernel on a CUDA tensor, at every size (and one
-for its VJP), and its exact-f32 plain version on a CPU tensor.
+An SSIM term, the five blurs of x, y, x*x, y*y and x*y, the SSIM and cs
+maps and their per-channel means, is one call of
+``kernels/ssim_blur.ssim_stats``: on a CUDA tensor one launch of the
+hand-written kernel, at every size (and one for its VJP), which reads the
+NHWC images in place and writes no map unless a gradient needs the moments;
+on a CPU tensor its exact-f32 plain version over the [B*C, H, W] planes (the
+layout of the JAX package's Pallas path, ``_ssim_maps_pallas``).
 """
 
 from __future__ import annotations
@@ -36,19 +38,7 @@ def _ssim_maps(
     k1, k2 = k
     c1 = (k1 * data_range) ** 2
     c2 = (k2 * data_range) ** 2
-    b, h, w, c = x.shape
-    x2 = x.permute(0, 3, 1, 2).reshape(b * c, h, w)
-    y2 = y.permute(0, 3, 1, 2).reshape(b * c, h, w)
-
-    mu1, mu2, e11, e22, e12 = ssim_blur.ssim_moments(x2, y2, win)
-    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    sigma1_sq = e11 - mu1_sq
-    sigma2_sq = e22 - mu2_sq
-    sigma12 = e12 - mu1_mu2
-
-    cs_map = (2.0 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)
-    ssim_map = ((2.0 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)) * cs_map
-    return ssim_map.mean(dim=(1, 2)).reshape(b, c), cs_map.mean(dim=(1, 2)).reshape(b, c)
+    return ssim_blur.ssim_stats(x, y, win, c1, c2)
 
 
 def ssim(

@@ -5,7 +5,7 @@ wrappers launched?  (ROADMAP C24.)
         [--plan conditions|state|prime|fix|pad] [--sessions N] --out FILE.json
 
 One process on one card runs many short profiler sessions, each over the
-same work: 5 calls of K5's five-moment launch on one 720p map and 5 of an
+same work: 5 calls of K5's single-map blur on one 720p map and 5 of an
 ATen multiply in place (one kernel each), the ``kernel_device_ms`` calls of
 ``chip_smoke.py`` at their smallest.  Each session is exported as a chrome
 trace and read back: K5's kernel events and the ATen kernel's, the CUDA
@@ -71,7 +71,7 @@ def _work():
     win = sb.window_tuple(11, 1.5)
 
     def call():
-        sb.moments_forward(img, img, win)
+        sb.blur_valid(img, win)
         buf.mul_(1.0)
 
     return call

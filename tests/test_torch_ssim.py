@@ -1,5 +1,6 @@
 """The port's SSIM blur (repnerv_tpu_torch/kernels/ssim_blur.py, K5) and
-SSIM / MS-SSIM (ops/ssim.py) against the JAX package, and the CUDA blur
+SSIM / MS-SSIM (ops/ssim.py) against the JAX package, ``ssim_stats`` (the
+SSIM term in one launch) against the formula it replaced, and the CUDA blur
 against its plain version on the card.
 
 On the CPU the port's blur is the plain version; the JAX side runs the
@@ -79,7 +80,7 @@ def test_moments_reference_is_five_blurs_to_the_bit(shape):
     assert len(got) == 5
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    for g, w in zip(sb.moments_forward(x, y, WIN), want):  # a CPU tensor: the plain version
+    for g, w in zip(sb.ssim_moments(x, y, WIN), want):  # the Function's forward: the same
         assert torch.equal(g, w)
 
 
@@ -128,6 +129,91 @@ def test_kernel_wrappers_refuse_other_windows():
             sb.blur_valid(x, win)
     with pytest.raises(ValueError):  # not a CUDA tensor
         sb.blur_valid(x, WIN)
+
+
+C1, C2 = 0.01**2, 0.03**2
+# [B, H, W, C] images holding the planes (3, 40, 50), (1, 11, 30), (2, 21, 37)
+# and MS-SSIM's level 5 at 720p
+STATS_SHAPES = [(1, 40, 50, 3), (1, 11, 30, 1), (2, 21, 37, 1), (1, 45, 80, 3)]
+
+
+def _formula_means(x, y, win):
+    """ops/ssim.py's SSIM formula as it stood before ``ssim_stats``: the
+    images' planes, their five moments from ``ssim_moments``, the maps'
+    means per channel."""
+    b, h, w, c = x.shape
+    x2 = x.permute(0, 3, 1, 2).reshape(b * c, h, w)
+    y2 = y.permute(0, 3, 1, 2).reshape(b * c, h, w)
+    mu1, mu2, e11, e22, e12 = sb.ssim_moments(x2, y2, win)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = e11 - mu1_sq
+    sigma2_sq = e22 - mu2_sq
+    sigma12 = e12 - mu1_mu2
+    cs_map = (2.0 * sigma12 + C2) / (sigma1_sq + sigma2_sq + C2)
+    ssim_map = ((2.0 * mu1_mu2 + C1) / (mu1_sq + mu2_sq + C1)) * cs_map
+    return ssim_map.mean(dim=(1, 2)).reshape(b, c), cs_map.mean(dim=(1, 2)).reshape(b, c)
+
+
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+def test_stats_reference_is_the_old_formula_to_the_bit(shape):
+    """``ssim_stats_reference`` and ``ssim_stats`` on CPU tensors give the old
+    formula's means to the bit, and ``ssim_stats`` autograd's gradient
+    through it to the bit (the same operations); a CPU call launches
+    nothing."""
+    x, y = _maps(shape, 11)
+    want = _formula_means(x, y, WIN)
+    before = dict(sb.ROUTE_LAUNCHES)
+    for got in (sb.ssim_stats_reference(x, y, WIN, C1, C2), sb.ssim_stats(x, y, WIN, C1, C2)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sb.ROUTE_LAUNCHES == before
+
+    def grad(fn):
+        a = x.clone().requires_grad_(True)
+        s, c = fn(a, y, WIN)
+        (0.7 * s.sum() - 0.2 * c.sum()).backward()
+        return a.grad
+
+    assert torch.equal(grad(lambda a, b, w: sb.ssim_stats(a, b, w, C1, C2)), grad(_formula_means))
+
+
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+@pytest.mark.parametrize("upstream", ["ssim", "cs", "both"])
+def test_stats_plain_backward_matches_autograd(shape, upstream):
+    """The explicit cotangents of the means and the moments' VJP
+    (``stats_vjp_reference``, what the kernel's backward computes) against
+    autograd through the formula, in f64, for x and (the moments paired the
+    other way) for y: within 1e-10 of the largest |entry|."""
+    x, y = (t.double() for t in _maps(shape, 12))
+    rng = np.random.default_rng(13)
+    g = {k: torch.from_numpy(rng.standard_normal((shape[0], shape[3]))) for k in ("ssim", "cs")}
+    if upstream != "both":
+        g["cs" if upstream == "ssim" else "ssim"].zero_()
+    a, b = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    s, c = sb.ssim_stats_reference(a, b, WIN, C1, C2)
+    ((g["ssim"] * s).sum() + (g["cs"] * c).sum()).backward()
+    moments = sb.ssim_moments_reference(sb.planes(x), sb.planes(y), WIN)
+    d_x = sb.stats_vjp_reference(moments, g["ssim"], g["cs"], x, y, WIN, C1, C2)
+    d_y = sb.stats_vjp_reference(sb._paired(moments), g["ssim"], g["cs"], y, x, WIN, C1, C2)
+    for got, want in ((d_x, a.grad), (d_y, b.grad)):
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-10 * want.abs().max().item()
+
+
+def test_stats_wrappers_take_cuda_tensors_only():
+    """``stats_forward`` and ``stats_vjp`` are the kernel's wrappers alone
+    (``ssim_stats`` takes the plain path on a CPU tensor): a CPU tensor is
+    refused before any launch, as is a window the kernel does not take."""
+    x, y = _maps((1, 40, 50, 3), 16)
+    with pytest.raises(ValueError):
+        sb.stats_forward(x, y, WIN, C1, C2, keep_moments=False)
+    moments = sb.ssim_moments_reference(sb.planes(x), sb.planes(y), WIN)
+    g = torch.ones(1, 3)
+    with pytest.raises(ValueError):
+        sb.stats_vjp(moments, g, g, x, y, WIN, C1, C2)
+    meta = torch.zeros(1, 40, 50, 3, device="meta")
+    with pytest.raises(ValueError):
+        sb.stats_forward(meta, meta, WIN[:10], C1, C2, keep_moments=True)
+    assert sb.stats_tiles(720, 1280, 11) == 11 * 23  # 118 output columns and 32 rows a block
 
 
 def _images(b=1, h=176, w=192, seed=3):
@@ -250,48 +336,59 @@ MOMENT_SHAPES = [
 ]
 
 
+def _as_image(t):
+    """[N, H, W] planes -> one [1, H, W, N] image whose planes they are."""
+    return t.permute(1, 2, 0)[None].contiguous()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", MOMENT_SHAPES)
 def test_cuda_moments_match_plain_bitwise(cuda, shape):
-    x, y = (t.to(cuda) for t in _maps(shape, 7))
+    """The moments a stats launch keeps for the backward, read from an
+    image's channels in place, equal the plain blurs to the bit; the means
+    are within 1e-6 of the plain ones (the same maps, summed in another
+    order)."""
+    x, y = (_as_image(t.to(cuda)) for t in _maps(shape, 7))
     before = sb.LAUNCHES
-    got = sb.moments_forward(x, y, WIN)
+    s, c, got = sb.stats_forward(x, y, WIN, C1, C2, keep_moments=True)
     torch.cuda.synchronize()
     assert sb.LAUNCHES == before + 1
-    want = sb.ssim_moments_reference(x, y, WIN)
+    want = sb.ssim_moments_reference(sb.planes(x), sb.planes(y), WIN)
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
+    for g, w in zip((s, c), sb.ssim_stats_reference(x, y, WIN, C1, C2)):
+        assert (g - w).abs().max().item() <= 1e-6
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", MOMENT_SHAPES)
 def test_cuda_moments_vjp_matches_plain(cuda, shape):
-    """One launch per input that needs a gradient; the fused sum of three
-    terms within 1e-6 of the largest |entry| of the plain VJP, and equal to
-    it where only one term is not zero."""
-    x, y = (t.to(cuda) for t in _maps(shape, 8))
-    n, h, w = shape
-    g = [torch.randn(n, h - 10, w - 10, device=cuda) for _ in range(3)]
+    """One launch per input that needs a gradient; the cotangents formed in
+    the loader and the fused sum of three terms within 1e-6 of the largest
+    |entry| of the plain backward, and exactly zero where both upstream
+    scalars are."""
+    x, y = (_as_image(t.to(cuda)) for t in _maps(shape, 8))
+    moments = sb.stats_forward(x, y, WIN, C1, C2, keep_moments=True)[2]
+    g_s, g_c = (torch.randn(1, shape[0], device=cuda) for _ in range(2))
     before = sb.LAUNCHES
-    got = sb.moments_vjp(*g, x, y, WIN)
+    got = sb.stats_vjp(moments, g_s, g_c, x, y, WIN, C1, C2)
     torch.cuda.synchronize()
     assert sb.LAUNCHES == before + 1
-    want = sb.moments_vjp_reference(*g, x, y, WIN)
+    want = sb.stats_vjp_reference(moments, g_s, g_c, x, y, WIN, C1, C2)
     assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
-    zero = torch.zeros_like(g[0])
-    assert torch.equal(sb.moments_vjp(g[0], zero, zero, x, y, WIN),
-                       sb.blur_full_reference(g[0], WIN))
+    zero = torch.zeros_like(g_s)
+    assert not sb.stats_vjp(moments, zero, zero, x, y, WIN, C1, C2).any()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("needs,launches", [((True, False), 2), ((True, True), 3)])
 def test_cuda_moments_function_launches(cuda, needs, launches):
-    x, y = (t.to(cuda) for t in _maps((3, 64, 96), 9))
+    x, y = (_as_image(t.to(cuda)) for t in _maps((3, 64, 96), 9))
     x.requires_grad_(needs[0])
     y.requires_grad_(needs[1])
     before = sb.LAUNCHES
-    outs = sb.ssim_moments(x, y, WIN)
-    sum(o.sum() for o in outs).backward()
+    s, c = sb.ssim_stats(x, y, WIN, C1, C2)
+    (s.sum() + c.sum()).backward()
     torch.cuda.synchronize()
     assert sb.LAUNCHES == before + launches
     assert (x.grad is not None) == needs[0] and (y.grad is not None) == needs[1]
@@ -301,10 +398,14 @@ def test_cuda_moments_function_launches(cuda, needs, launches):
 @pytest.mark.parametrize("size,sigma", [(3, 0.8), (7, 1.0), (15, 2.5)])
 def test_cuda_blur_other_window_sizes(cuda, size, sigma):
     win = sb.window_tuple(size, sigma)
-    x, y = (t.to(cuda) for t in _maps((2, 70, 150), 10))
-    for g, w in zip(sb.moments_forward(x, y, win), sb.ssim_moments_reference(x, y, win)):
+    x, y = (_as_image(t.to(cuda)) for t in _maps((2, 70, 150), 10))
+    s, c, moments = sb.stats_forward(x, y, win, C1, C2, keep_moments=True)
+    for g, w in zip(moments, sb.ssim_moments_reference(sb.planes(x), sb.planes(y), win)):
         assert torch.equal(g, w)
-    assert torch.equal(sb.blur_full(x, win), sb.blur_full_reference(x, win))
+    for g, w in zip((s, c), sb.ssim_stats_reference(x, y, win, C1, C2)):
+        assert (g - w).abs().max().item() <= 1e-6
+    planes = sb.planes(x)
+    assert torch.equal(sb.blur_full(planes, win), sb.blur_full_reference(planes, win))
 
 
 @pytest.mark.gpu
@@ -316,7 +417,7 @@ def test_cuda_ssim_and_grad_match_cpu(cuda):
     before = sb.LAUNCHES
     out = ts.ssim(xg, torch.from_numpy(y).to(cuda))
     (1.0 - out).backward()
-    assert sb.LAUNCHES == before + 2  # one for the five maps, one for their VJP
+    assert sb.LAUNCHES == before + 2  # the means with the moments kept, their VJP
     ref_g = xc.grad
     assert (xg.grad.cpu() - ref_g).abs().max().item() <= 1e-6 * max(ref_g.abs().max().item(), 1)
 
@@ -327,3 +428,69 @@ def test_cuda_ssim_matches_cpu(cuda):
     ref = float(ts.ms_ssim(torch.from_numpy(x), torch.from_numpy(y)))
     out = float(ts.ms_ssim(torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)))
     assert out == pytest.approx(ref, abs=1e-6)
+
+
+LEVEL_SHAPES = [
+    (1, 720, 1280, 3),  # the loss's, and MS-SSIM level 1 at 720p
+    (1, 360, 640, 3),
+    (1, 180, 320, 3),
+    (1, 90, 160, 3),
+    (1, 45, 80, 3),     # level 5
+    (2, 21, 37, 3),     # small, odd and two images
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LEVEL_SHAPES)
+def test_cuda_stats_and_grad_match_plain(cuda, shape):
+    """``ssim_stats`` with a gradient: one launch that keeps the moments and
+    one VJP per input.  The means within 1e-6 of the plain version's (the
+    same maps to the bit, summed in another order); d_x and d_y, written in
+    the images' layout, within 1e-6 of the largest |entry| of the plain
+    backward (the moments' VJP adds its three terms in another order); a
+    second call gives the same bits."""
+    x, y = (t.to(cuda) for t in _maps(shape, 14))
+    g_s, g_c = (torch.randn(shape[0], shape[3], device=cuda) for _ in range(2))
+
+    def run():
+        a, b = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        s, c = sb.ssim_stats(a, b, WIN, C1, C2)
+        ((g_s * s).sum() + (g_c * c).sum()).backward()
+        return s.detach(), c.detach(), a.grad, b.grad
+
+    before = dict(sb.ROUTE_LAUNCHES)
+    first = run()
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in sb.ROUTE_LAUNCHES.items()} == {
+        "stats": 0, "stats_grad": 1, "vjp": 2, "blur": 0}
+    assert all(torch.equal(u, v) for u, v in zip(first, run()))
+    for got, want in zip(first[:2], sb.ssim_stats_reference(x, y, WIN, C1, C2)):
+        assert (got - want).abs().max().item() <= 1e-6
+    moments = sb.ssim_moments_reference(sb.planes(x), sb.planes(y), WIN)
+    wants = (sb.stats_vjp_reference(moments, g_s, g_c, x, y, WIN, C1, C2),
+             sb.stats_vjp_reference(sb._paired(moments), g_s, g_c, y, x, WIN, C1, C2))
+    for got, want in zip(first[2:], wants):
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LEVEL_SHAPES)
+def test_cuda_stats_without_grad_write_no_map(cuda, shape):
+    """Under ``no_grad`` (an input that requires a gradient or not) the one
+    launch writes the partial sums alone: the call's peak allocation is less
+    than one moment map, and its means are the gradient path's bits."""
+    x, y = (t.to(cuda) for t in _maps(shape, 15))
+    x.requires_grad_(True)
+    with_grad = sb.ssim_stats(x, y, WIN, C1, C2)
+    b, h, w, c = shape
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = dict(sb.ROUTE_LAUNCHES)
+    with torch.no_grad():
+        got = sb.ssim_stats(x, y, WIN, C1, C2)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - base < b * c * (h - 10) * (w - 10) * 4
+    assert {r: k - before[r] for r, k in sb.ROUTE_LAUNCHES.items()} == {
+        "stats": 1, "stats_grad": 0, "vjp": 0, "blur": 0}
+    assert all(torch.equal(u, v.detach()) for u, v in zip(got, with_grad))

@@ -378,3 +378,35 @@ def test_graph_step_replays_on_after_the_guard_restore_on_the_card(cuda):
     eager = Recorder(loop.build_train_step_fn(cfg, 6, with_msssim=False))
     ref, _ = loop.run_epoch(ref, eager, store, cfg, 1)
     assert torch.equal(rec.losses(), eager.losses())
+
+
+def _flagship_cfg() -> TrainConfig:
+    from repnerv_tpu_torch.cli.args import args_to_config, build_parser
+
+    argv = ("--dataset synth --synthetic_frames 4 --synthetic_hw 720 1280 --embed 1.25_40 "
+            "--stem_dim_num 512_1 --fc_hw_dim 9_16_26 --expansion 1 --reduction 2 "
+            "--num_blocks 1 --strides 5 2 2 2 2 --lower_width 96 --norm none --conv_type conv "
+            "--act swish --single_res --loss Fusion6 -b 1 --lr 0.0005 --warmup 0.2 "
+            "--lr_type cosine -e 300 --compute_dtype bfloat16 --branch_type ERB").split()
+    return args_to_config(build_parser(eval_mode=False).parse_args(argv), eval_mode=False)
+
+
+@pytest.mark.gpu
+def test_flagship_step_runs_each_ssim_term_as_one_stats_launch_on_the_card(cuda):
+    """The erb-720p bf16 step, eager and replayed: the loss's SSIM term is
+    one K5 launch that keeps the moments and one VJP, each of the metrics'
+    five MS-SSIM levels one launch that keeps nothing, and no other K5
+    launch runs."""
+    cfg = _flagship_cfg()
+    video, t = synthetic_video(1, 720, 1280, seed=3)
+    frames, t = torch.from_numpy(video).to(cuda), torch.from_numpy(t).to(cuda)
+    state = loop.init_train_state(cfg, cuda, seed=0)
+    key = ("repnerv_tpu_torch.kernels.ssim_blur", "ROUTE_LAUNCHES")
+    for step in (loop.build_train_step_fn(cfg, 2, with_msssim=True),
+                 loop.make_train_step(cfg, 2, with_msssim=True)):
+        step(state, frames, t)  # the graph step: eager on a side stream, then the capture
+        before = launches.snapshot()
+        step(state, frames, t)
+        torch.cuda.synchronize()
+        assert launches.since(before)[key] == {
+            "stats": 5, "stats_grad": 1, "vjp": 1, "blur": 0}
