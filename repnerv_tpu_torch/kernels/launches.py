@@ -3,8 +3,9 @@
 Each kernel wrapper adds one to a module-level count where it launches its
 kernel: ``decode.LAUNCHES`` and ``ROUTE_LAUNCHES`` (K1),
 ``decode_int8.LAUNCHES`` and ``ROUTE_LAUNCHES`` (K2),
-``train_tail.FWD_LAUNCHES``, ``FWD_ROUTE_LAUNCHES`` (K3) and
-``BWD_LAUNCHES`` (K4), ``ssim_blur.LAUNCHES`` and ``ROUTE_LAUNCHES`` (K5).
+``train_tail.FWD_LAUNCHES``, ``FWD_ROUTE_LAUNCHES``, ``FWD_STRIDE_LAUNCHES``
+(K3), ``BWD_LAUNCHES`` and ``BWD_STRIDE_LAUNCHES`` (K4), ``ssim_blur.LAUNCHES``
+and ``ROUTE_LAUNCHES`` (K5).
 A CUDA graph's capture calls the wrappers without running a kernel, and its
 replay runs the kernels without calling a wrapper: the code that captures a
 graph takes the capture's counts back (``add(counts, -1)``) and adds them at
@@ -24,7 +25,9 @@ _COUNTERS = (
     (decode_int8, "ROUTE_LAUNCHES"),
     (train_tail, "FWD_LAUNCHES"),
     (train_tail, "FWD_ROUTE_LAUNCHES"),
+    (train_tail, "FWD_STRIDE_LAUNCHES"),
     (train_tail, "BWD_LAUNCHES"),
+    (train_tail, "BWD_STRIDE_LAUNCHES"),
     (ssim_blur, "LAUNCHES"),
     (ssim_blur, "ROUTE_LAUNCHES"),
 )

@@ -53,6 +53,9 @@ from .decode import (
 FWD_LAUNCHES = 0
 FWD_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)  # K3's launches by kernels.decode.stage_route
 BWD_LAUNCHES = 0
+# K3's and K4's launches by the stage's stride (every stride the kernels take)
+FWD_STRIDE_LAUNCHES = dict.fromkeys((1, 2, 3, 4, 5), 0)
+BWD_STRIDE_LAUNCHES = dict.fromkeys((1, 2, 3, 4, 5), 0)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -125,6 +128,7 @@ def stage_forward(
     route = launch_stage_kernel(x, p, act, squash, out, z)
     FWD_LAUNCHES += 1
     FWD_ROUTE_LAUNCHES[route] += 1
+    FWD_STRIDE_LAUNCHES[s] += 1
     return out, z
 
 
@@ -274,6 +278,7 @@ def epilogue_backward(
     if err != 0:
         raise RuntimeError(f"train stage backward kernel launch failed: cudaError {err}")
     BWD_LAUNCHES += 1
+    BWD_STRIDE_LAUNCHES[s] += 1
     return d_conv, d_b, d_hw, d_hb
 
 
@@ -286,6 +291,12 @@ def packed_weight_oihw(p: PackedStage) -> torch.Tensor:
     """The packed conv weight [9*Cin, Cout] as an OIHW view [Cout, Cin, 3, 3]
     (shuffle-major O, compute dtype) for the library's dX / dW.  No kernel runs."""
     return p.w.reshape(3, 3, p.cin, p.w.shape[1]).permute(3, 2, 0, 1)
+
+
+def stage_span(stride: int) -> str:
+    """The program span of a fused stage of stride ``stride``: its forward
+    (``Generator.forward``) and its backward here."""
+    return f"stage.s{stride}"
 
 
 class _FusedStageTrain(torch.autograd.Function):
@@ -310,34 +321,35 @@ class _FusedStageTrain(torch.autograd.Function):
     def backward(ctx, ct):
         xc, z, out, w2 = ctx.saved_tensors
         stride, act, squash, cd, hw2, with_head, x_dtype, w_dtype = ctx.cfg
-        ct = ct.to(torch.float32 if with_head else cd).contiguous()
-        d_conv, d_b, d_hw, d_hb = epilogue_backward(
-            z, ct, out, hw2 if with_head else None, stride, act, squash
-        )
-        x_nchw = xc.permute(0, 3, 1, 2)
-        d_nchw = d_conv.permute(0, 3, 1, 2)
-        # dX and dW in one library call on the tensors as they lie (NHWC memory
-        # seen as channels_last NCHW: cuDNN copies nothing).  torch.nn.grad's
-        # conv2d_input / conv2d_weight stand in a made-up operand for the one
-        # they do not read, which the backend first copies out at full size:
-        # on an H100 2.416 ms for the pair against 0.685 ms for this call at
-        # the 720p stage in bf16.
-        with _f32_ctx(cd):
-            d_x, d_w2, _ = torch.ops.aten.convolution_backward(
-                d_nchw, x_nchw, w2, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
-                [True, True, False],
+        with span(stage_span(stride)):
+            ct = ct.to(torch.float32 if with_head else cd).contiguous()
+            d_conv, d_b, d_hw, d_hb = epilogue_backward(
+                z, ct, out, hw2 if with_head else None, stride, act, squash
             )
-        # w2 = w[..., perm]  =>  d_w = d_w2[inverse of perm]: one gather
-        _, inv = shuffle_permutations(w2.shape[0], stride, w2.device)
-        d_w = d_w2.index_select(0, inv)
-        return (
-            d_x.permute(0, 2, 3, 1).to(x_dtype),
-            d_w.permute(2, 3, 1, 0).to(w_dtype),
-            d_b,
-            d_hw.reshape(1, 1, *d_hw.shape) if with_head else None,
-            d_hb if with_head else None,
-            None, None, None, None,
-        )
+            x_nchw = xc.permute(0, 3, 1, 2)
+            d_nchw = d_conv.permute(0, 3, 1, 2)
+            # dX and dW in one library call on the tensors as they lie (NHWC memory
+            # seen as channels_last NCHW: cuDNN copies nothing).  torch.nn.grad's
+            # conv2d_input / conv2d_weight stand in a made-up operand for the one
+            # they do not read, which the backend first copies out at full size:
+            # on an H100 2.416 ms for the pair against 0.685 ms for this call at
+            # the 720p stage in bf16.
+            with _f32_ctx(cd):
+                d_x, d_w2, _ = torch.ops.aten.convolution_backward(
+                    d_nchw, x_nchw, w2, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                    [True, True, False],
+                )
+            # w2 = w[..., perm]  =>  d_w = d_w2[inverse of perm]: one gather
+            _, inv = shuffle_permutations(w2.shape[0], stride, w2.device)
+            d_w = d_w2.index_select(0, inv)
+            return (
+                d_x.permute(0, 2, 3, 1).to(x_dtype),
+                d_w.permute(2, 3, 1, 0).to(w_dtype),
+                d_b,
+                d_hw.reshape(1, 1, *d_hw.shape) if with_head else None,
+                d_hb if with_head else None,
+                None, None, None, None,
+            )
 
 
 def fused_stage_train(

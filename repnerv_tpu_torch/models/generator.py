@@ -35,7 +35,11 @@ activations and parameters) runs every block conv and stem matmul through
 sums, the cotangent rounded to bf16 in the backward.
 
 On a CUDA tensor each fused stage is a hand-written kernel; on a CPU
-tensor its plain version.
+tensor its plain version.  Each fused stage, on every path, runs inside the
+program span ``stage.s<stride>`` (``stage_spans``): in training the branch
+fusion (``reparam.fuse``) and K3, in serving K1 or K2.  The fused stage's
+backward (K4 and the library's dX / dW) runs in the same span, inside the
+step's backward.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig, head_plan, stage_channels
 from ..kernels import decode as decode_kernel
 from ..kernels import decode_int8
-from ..kernels.train_tail import fused_stage_train
+from ..kernels.train_tail import fused_stage_train, stage_span
 from ..utils.profiling import span
 from . import reparam
 from .blocks import NeRVBlock, block_to_deploy
@@ -138,6 +142,8 @@ class Generator(nn.Module):
             else None
             for i, has_head in enumerate(head_plan(cfg))
         )
+        # each block's fused-stage span, named once
+        self.stage_spans = [stage_span(blk.stride) for blk in self.layers]
         self._packed: Dict[Tuple, decode_kernel.PackedStage] = {}
         # int8 decode tables by block index (str, as the JAX params' keys)
         self.int8: Dict[str, Int8Entry] = {}
@@ -207,7 +213,9 @@ class Generator(nn.Module):
                     if x.dtype != torch.int8:
                         with span("int8.quantize_act"):
                             x = decode_int8.quantize_act_int8(x, q.in_scale)
-                    x = decode_int8.decode_stage_int8(x.contiguous(), q.packed, cfg.act, squash)
+                    with span(self.stage_spans[li]):
+                        x = decode_int8.decode_stage_int8(x.contiguous(), q.packed, cfg.act,
+                                                          squash)
                     if fuse_head is not None:
                         outputs.append(x)
                         return outputs
@@ -221,24 +229,28 @@ class Generator(nn.Module):
                     and x.shape[1] * x.shape[2] >= KERNEL_MIN_PIXELS
                 )
                 if use_decode:
-                    p = self._packed_stage(li, fuse_head, dtype)
-                    x = decode_kernel.decode_stage(x.to(dtype).contiguous(), p, cfg.act, squash)
+                    with span(self.stage_spans[li]):
+                        p = self._packed_stage(li, fuse_head, dtype)
+                        x = decode_kernel.decode_stage(x.to(dtype).contiguous(), p, cfg.act,
+                                                       squash)
                 elif use_ptrain(cfg, x, train):
-                    with span("reparam.fuse"):
-                        wt, bt = reparam.fuse(cfg.branch_type, blk)
-                    if bt is None:
-                        bt = torch.zeros(wt.shape[0], dtype=wt.dtype, device=wt.device)
-                    x = fused_stage_train(
-                        x,
-                        wt.permute(2, 3, 1, 0),  # OIHW -> HWIO
-                        bt,
-                        fuse_head.weight.permute(2, 3, 1, 0) if fuse_head is not None else None,
-                        fuse_head.bias if fuse_head is not None else None,
-                        blk.stride,
-                        cfg.act,
-                        squash,
-                        "float32" if cfg.compute_dtype == "float32" else "bfloat16",
-                    )
+                    with span(self.stage_spans[li]):
+                        with span("reparam.fuse"):
+                            wt, bt = reparam.fuse(cfg.branch_type, blk)
+                        if bt is None:
+                            bt = torch.zeros(wt.shape[0], dtype=wt.dtype, device=wt.device)
+                        x = fused_stage_train(
+                            x,
+                            wt.permute(2, 3, 1, 0),  # OIHW -> HWIO
+                            bt,
+                            fuse_head.weight.permute(2, 3, 1, 0) if fuse_head is not None
+                            else None,
+                            fuse_head.bias if fuse_head is not None else None,
+                            blk.stride,
+                            cfg.act,
+                            squash,
+                            "float32" if cfg.compute_dtype == "float32" else "bfloat16",
+                        )
                 else:
                     fuse_head = None
                     if train and cfg.remat:
