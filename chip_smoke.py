@@ -136,6 +136,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                graph steps of epoch 2 and phase 6's graph steps
                (``python3 chip_smoke.py --profile`` runs phases 1, 2 and 13
                alone)
+Phase 5b, fold: ERB's branch fusion (kernels/reparam_fuse.py, two launches
+forward and two in the VJP) at every ERB block shape of erb-720p and
+erb-uvg1080p against the plain fusion (``fuse_erb_plain``) and autograd in
+f64, within twice the plain f32 path's error; its time and the plain
+path's from the same inputs, and its bound; then ``train_main``'s own run
+(bf16) counts its launches in the training steps and in the eval
+(``python3 chip_smoke.py --fold`` runs phases 1, 2 and 5b alone).  The
+plain side of every kernel-vs-plain step comparison folds with
+``fuse_erb_plain`` (``plain_fold``).
 Every kernel's row of the ``kernels`` line carries ``bound_ms`` / ``bound_by``
 and ``library_ms`` (null where no single PyTorch call computes the kernel's
 heavy part, with a ``library_note`` saying why; K5's is a depthwise
@@ -174,9 +183,11 @@ from repnerv_tpu_torch.kernels import build
 from repnerv_tpu_torch.kernels import decode as dk
 from repnerv_tpu_torch.kernels import decode_int8 as k8
 from repnerv_tpu_torch.kernels import launches as kernel_launches
+from repnerv_tpu_torch.kernels import reparam_fuse as rfk
 from repnerv_tpu_torch.kernels import ssim_blur as sb
 from repnerv_tpu_torch.kernels import train_tail as tt
 from repnerv_tpu_torch.models.embedding import positional_encoding
+from repnerv_tpu_torch.models import reparam
 from repnerv_tpu_torch.models.generator import Generator, calibrate_int8, param_count
 from repnerv_tpu_torch.utils.profiling import trace
 from repnerv_tpu_torch.train.loop import (
@@ -250,6 +261,14 @@ PER_STEP = {"K3": 4, "K4": 4, "K5": 1 + 1 + 5}
 # "mixed" runs every conv on the library (the JAX gate keeps it off K3 / K4)
 PER_STEP_MIXED = {"K3": 0, "K4": 0, "K5": 1 + 1 + 5}
 PER_EVAL_FRAME = {"K3": 0, "K4": 0, "K5": 5}
+# ERB's fusion: each of the flagship's 5 ERB blocks folds in two launches a
+# training step, and its VJP in two more; an eval frame folds them with no VJP
+# (every dtype: the branch weights stay f32)
+FOLD_PER_STEP = {"FOLD": 5 * 2, "FOLD_VJP": 5 * 2}
+FOLD_PER_EVAL_FRAME = {"FOLD": 5 * 2, "FOLD_VJP": 0}
+# (name, Oo = Om, I) of every ERB block of erb-720p and erb-uvg1080p (M = 2 I)
+FOLD_SHAPES = (("erb720.b0", 650, 26), ("erb720.b1", 384, 26), ("erb720.b2-4", 384, 96),
+               ("erb1080.b0", 1200, 48), ("erb1080.b1", 864, 48))
 # graph step vs eager step from the same weights over the 16 steps of an
 # epoch: the same kernels in the same order, so the losses agree to the bit
 # but where cuDNN's dX / dW algorithms sum in an order that is not fixed
@@ -917,13 +936,192 @@ def phase_train_kernels() -> dict:
     return rows
 
 
+class _ErbView:
+    """What ``reparam.fuse_erb_plain`` reads of an ERB block, over its nine
+    branch tensors (``reparam.erb_tensors``' order)."""
+
+    rbr_reparam = None
+
+    def __init__(self, ts):
+        def branch(w, b=None):
+            return type("Branch", (), {"weight": w, "bias": b})()
+
+        self.rbr_3x3_branch = branch(ts[0], ts[1])
+        self.rbr_1x3_branch = branch(ts[2], ts[3])
+        self.rbr_3x1_branch = branch(ts[4], ts[5])
+        self.rbr_1x1_3x3_1x1_branch_1x1_1 = branch(ts[6])
+        self.rbr_1x1_3x3_1x1_branch_3x3 = branch(ts[7])
+        self.rbr_1x1_3x3_1x1_branch_1x1_2 = branch(ts[8])
+
+
+def _fold_with_grads(fold, ts, dk_, db):
+    """(K, b, the nine gradients) of ``fold`` over leaves made of ``ts``."""
+    leaves = tuple(t.detach().requires_grad_(True) for t in ts)
+    k, b = fold(leaves)
+    return (k.detach(), b.detach(), *torch.autograd.grad((k, b), leaves, (dk_, db)))
+
+
+def phase_fold() -> list:
+    """Phase 5b: ERB's fusion and its VJP on the card's kernels at every ERB
+    block shape of erb-720p and erb-uvg1080p, against the plain fusion in
+    f64: each output within twice the plain f32 path's (cuBLAS, TF32 off)
+    own error, two launches each way, the same bits twice; the kernel's ms
+    and the plain path's (forward; forward and VJP) from the same inputs,
+    and its bound in exact f32."""
+    names = ("K", "b", "dw3x3", "db3x3", "dw1x3", "db1x3", "dw3x1", "db3x1", "dw1", "dw2", "dw3")
+    g = torch.Generator().manual_seed(SEED)
+    rows = []
+    for shape, o, cin in FOLD_SHAPES:
+        m = 2 * cin
+
+        def u(shp, fan_in):
+            return ((torch.rand(shp, generator=g, dtype=torch.float64) * 2 - 1)
+                    * fan_in ** -0.5).cuda()
+
+        ts64 = (u((o, cin, 3, 3), 9 * cin), u((o,), 9 * cin), u((o, cin, 1, 3), 3 * cin),
+                u((o,), 3 * cin), u((o, cin, 3, 1), 3 * cin), u((o,), 3 * cin),
+                u((m, cin, 1, 1), cin), u((o, m, 3, 3), 9 * m), u((o, o, 1, 1), o))
+        dk64 = torch.randn(o, cin, 3, 3, generator=g, dtype=torch.float64).cuda()
+        db64 = torch.randn(o, generator=g, dtype=torch.float64).cuda()
+
+        def plain(leaves):
+            return reparam.fuse_erb_plain(_ErbView(leaves))
+
+        def kernel(leaves):
+            return rfk.erb_fold(*leaves)
+
+        ref = _fold_with_grads(plain, ts64, dk64, db64)
+        ts = tuple(t.float() for t in ts64)
+        dk_, db = dk64.float(), db64.float()
+        if not rfk.takes(ts):
+            raise AssertionError(f"[fold] {shape}: the kernels do not take ERB's f32 tensors")
+        plain_out = _fold_with_grads(plain, ts, dk_, db)
+        before = launch_counts()
+        got = _fold_with_grads(kernel, ts, dk_, db)
+        torch.cuda.synchronize()
+        launched = {k: launch_counts()[k] - before[k] for k in ("FOLD", "FOLD_VJP")}
+        again = _fold_with_grads(kernel, ts, dk_, db)
+        err = {n: (x.double() - r).abs().max().item() for n, x, r in zip(names, got, ref)}
+        plain_err = {n: (x.double() - r).abs().max().item()
+                     for n, x, r in zip(names, plain_out, ref)}
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        worst = max(names, key=lambda n: err[n] / max(plain_err[n], 1e-300))
+        ok = (same and launched == {"FOLD": 2, "FOLD_VJP": 2}
+              and all(err[n] <= 2 * plain_err[n] for n in names))
+        with torch.no_grad():
+            ms = cuda_ms(lambda: kernel(ts))
+            plain_ms = cuda_ms(lambda: plain(ts))
+        leaves = tuple(t.detach().requires_grad_(True) for t in ts)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(kernel(leaves), leaves, (dk_, db)))
+        leaves = tuple(t.detach().requires_grad_(True) for t in ts)
+        plain_both_ms = cuda_ms(lambda: torch.autograd.grad(plain(leaves), leaves, (dk_, db)))
+        # 2 per multiply-add: T = w2 . w1 and w3 . T forward; dw3, dT, dw2, dw1
+        fwd_ops = 2.0 * (9 * o * cin * m + o * 9 * cin * o)
+        vjp_ops = 2.0 * (o * o * 9 * cin + o * 9 * cin * o + 9 * o * m * cin + m * cin * 9 * o)
+        fwd_bytes = nbytes(*ts) + nbytes(got[0], got[1])
+        bound = roofline(fwd_ops + vjp_ops, nbytes(*ts, dk_, db, *got), "f32")
+        row = {"shape": shape, "dtype": "float32", "o": o, "cin": cin, "m": m,
+               "max_abs_err": max(err.values()), "errors": err, "plain_errors": plain_err,
+               "worst": worst, "same_bits": same, "launches": launched,
+               "ms": both_ms, "plain_ms": plain_both_ms, "forward_ms": ms,
+               "forward_plain_ms": plain_ms, "library_ms": plain_both_ms,
+               "forward_bound_ms": roofline(fwd_ops, fwd_bytes, "f32")["bound_ms"], **bound}
+        rows.append(row)
+        log(f"[fold] {shape} (O {o}, I {cin}): worst {worst} max|d| {err[worst]:.3e} against "
+            f"the plain f32 path's {plain_err[worst]:.3e} (tol 2x, every output), same bits "
+            f"{same}, launches {launched}; forward {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+            f"{row['forward_bound_ms']:.4f}); forward and VJP {both_ms:.4f} ms (plain "
+            f"{plain_both_ms:.4f}, bound {bound['bound_ms']:.4f} by {bound['bound_by']}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[fold] {shape}: errors {err} against the plain path's "
+                                 f"{plain_err}, same bits {same}, launches {launched}")
+    return rows
+
+
+@contextlib.contextmanager
+def plain_fold(on: bool = True):
+    """ERB's fusion on its plain path (``fuse_erb_plain``, as on a CPU
+    tensor) inside the block when ``on``: the plain side of a kernel-vs-plain
+    step."""
+    takes = rfk.takes
+    if on:
+        rfk.takes = lambda tensors: False
+    try:
+        yield
+    finally:
+        rfk.takes = takes
+
+
+def check_fold_counts(label: str, epoch_fns: list, eval_counts: dict, n_eval: int) -> None:
+    """The fusion's launches in a run's replayed training step (each epoch
+    function's replay: one step) and in its eval (the run's own deploy
+    snapshots and --eval_fps decodes fold too, outside both)."""
+    got = [{k: launches_of(fn.replay_counts)[k] for k in FOLD_PER_STEP} for fn in epoch_fns]
+    want_eval = {k: v * n_eval for k, v in FOLD_PER_EVAL_FRAME.items()}
+    got_eval = {k: eval_counts.get(k, 0) for k in want_eval}
+    log(f"[fold] {label}: fusion launches a replayed step {got} (expect {FOLD_PER_STEP} for "
+        f"each epoch function), in the eval of {n_eval} frames {got_eval} (expect {want_eval})")
+    if not got or any(r != FOLD_PER_STEP for r in got) or got_eval != want_eval:
+        raise AssertionError(f"[fold] {label}: launches a step {got} and {got_eval} in the "
+                             f"eval, expected {FOLD_PER_STEP} and {want_eval}")
+
+
+def fold_main_path(tmp: str) -> dict:
+    """Phase 5b's main-path part: train_main on TRAIN_ARGV in bf16, its
+    fusion launches in the training steps and in the eval."""
+    eval_counts = {}
+    evaluate = train_main.evaluate
+
+    def counted_evaluate(*args, **kwargs):
+        before = launch_counts()
+        out = evaluate(*args, **kwargs)
+        for k, v in launch_counts().items():
+            eval_counts[k] = eval_counts.get(k, 0) + v - before[k]
+        return out
+
+    cwd = os.getcwd()
+    train_main.evaluate = counted_evaluate
+    os.chdir(tmp)  # train_main writes under result/<outf>
+    try:
+        reset_counts()  # the main path's run starts here
+        with EpochRecorder() as rec:
+            train_main.main(TRAIN_ARGV + ["--compute_dtype", "bfloat16", "--outf", "fold"])
+        counts = launch_counts()  # ... and ends here
+    finally:
+        os.chdir(cwd)
+        train_main.evaluate = evaluate
+    check_fold_counts("train_main bfloat16", rec.epoch_fns(), eval_counts,
+                      TRAIN_FRAMES * TRAIN_EPOCHS)
+    return {"launches": counts, "eval_launches": eval_counts}
+
+
+def fold_kernel_row(rows: list, launches: int) -> dict:
+    """The ``kernels`` line's row of ERB's fusion: the five ERB blocks of one
+    -b 1 erb-720p training step (block 0, block 1, blocks 2-4 three times),
+    forward and VJP."""
+    step = [r for r in rows if r["shape"] == "erb720.b0"] + [
+        r for r in rows if r["shape"] == "erb720.b1"] + 3 * [
+        r for r in rows if r["shape"] == "erb720.b2-4"]
+    return {"name": "erb_fold[float32]", "route": "cuda",
+            "source": "repnerv_tpu_torch/csrc/reparam_fuse.cu",
+            "replaces": "repnerv_tpu/models/reparam.py fuse_erb (jnp.einsum; no TPU kernel)",
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in step), "plain_ms": sum(r["plain_ms"] for r in step),
+            **sum_bounds(step), "library_ms": sum(r["library_ms"] for r in step),
+            "library_note": "the plain path's cuBLAS einsums and autograd's VJP",
+            "shapes": rows}
+
+
 def launch_counts() -> dict:
     return {"K1": dk.LAUNCHES, "K2": k8.LAUNCHES, "K3": tt.FWD_LAUNCHES,
-            "K4": tt.BWD_LAUNCHES, "K5": sb.LAUNCHES}
+            "K4": tt.BWD_LAUNCHES, "K5": sb.LAUNCHES,
+            "FOLD": rfk.FWD_LAUNCHES, "FOLD_VJP": rfk.VJP_LAUNCHES}
 
 
 def reset_counts() -> None:
     dk.LAUNCHES = k8.LAUNCHES = tt.FWD_LAUNCHES = tt.BWD_LAUNCHES = sb.LAUNCHES = 0
+    rfk.FWD_LAUNCHES = rfk.VJP_LAUNCHES = 0
     for routes in (dk.ROUTE_LAUNCHES, tt.FWD_ROUTE_LAUNCHES, k8.ROUTE_LAUNCHES):
         for r in routes:
             routes[r] = 0
@@ -945,28 +1143,32 @@ def _step_setup(dtype: str, use_kernel: bool, store: FrameStore):
 
 
 def step_ms(dtype: str, use_kernel: bool, store: FrameStore) -> float:
-    """CUDA-event median of the steps of one epoch after a warm-up step."""
+    """CUDA-event median of the steps of one epoch after a warm-up step
+    (the plain path folds ERB's branches plainly too)."""
     state, step, t_all = _step_setup(dtype, use_kernel, store)
     rows = torch.arange(TRAIN_FRAMES, device="cuda")
-    state, _ = step(state, store.gather(rows[:1]), t_all[:1])
     times = []
-    for i in range(TRAIN_FRAMES):
-        r = rows[i : i + 1]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, _ = step(state, store.gather(r), t_all[r])
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    with plain_fold(not use_kernel):
+        state, _ = step(state, store.gather(rows[:1]), t_all[:1])
+        for i in range(TRAIN_FRAMES):
+            r = rows[i : i + 1]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, store.gather(r), t_all[r])
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
 def one_step_grads(dtype: str, use_kernel: bool, store: FrameStore):
-    """Loss and gradients of one step from the seed-0 weights on frame 0."""
+    """Loss and gradients of one step from the seed-0 weights on frame 0
+    (the plain path folds ERB's branches plainly too)."""
     state, step, t_all = _step_setup(dtype, use_kernel, store)
     rows = torch.zeros(1, dtype=torch.long, device="cuda")
-    _, aux = step(state, store.gather(rows), t_all[rows])
+    with plain_fold(not use_kernel):
+        _, aux = step(state, store.gather(rows), t_all[rows])
     grads = {k: p.grad.detach().float().clone() for k, p in state.model.named_parameters()}
     return aux["loss"].item(), grads
 
@@ -1024,17 +1226,19 @@ def profile_groups(run, n_iters: int) -> dict:
 
 
 def step_breakdown(dtype: str, use_kernel: bool, store: FrameStore, n_steps: int = 3) -> dict:
-    """``profile_groups`` of ``n_steps`` training steps after a warm-up step."""
+    """``profile_groups`` of ``n_steps`` training steps after a warm-up step
+    (the plain path folds ERB's branches plainly too)."""
     state, step, t_all = _step_setup(dtype, use_kernel, store)
     rows = torch.zeros(1, dtype=torch.long, device="cuda")
-    state, _ = step(state, store.gather(rows), t_all[rows])
 
     def run(i):
         nonlocal state
         r = rows + i + 1
         state, _ = step(state, store.gather(r), t_all[r])
 
-    return profile_groups(run, n_steps)
+    with plain_fold(not use_kernel):
+        state, _ = step(state, store.gather(rows), t_all[rows])
+        return profile_groups(run, n_steps)
 
 
 def decode_breakdown(decode_all, model, t_mat: torch.Tensor, label: str,
@@ -1225,8 +1429,9 @@ def phase_train(tmp: str) -> dict:
                 t0 = time.perf_counter()
                 # the bf16 run also measures the decode fps at every eval (--eval_fps)
                 extra = ["--eval_fps"] if dtype == "bfloat16" else []
-                res = train_main.main(TRAIN_ARGV + extra
-                                      + ["--compute_dtype", dtype, "--outf", dtype])
+                with EpochRecorder() as rec:
+                    res = train_main.main(TRAIN_ARGV + extra
+                                          + ["--compute_dtype", dtype, "--outf", dtype])
                 wall = time.perf_counter() - t0
                 counts = launch_counts()  # ... and ends here
                 routes = dict(tt.FWD_ROUTE_LAUNCHES)
@@ -1271,6 +1476,7 @@ def phase_train(tmp: str) -> dict:
             log(f"[train] {dtype}: rank0.txt FPS lines {fps_lines} (expect {want_fps})")
             if len(fps_lines) != want_fps or not all(np.isfinite(v) and v > 0 for v in fps_lines):
                 raise AssertionError(f"{dtype}: --eval_fps wrote {fps_lines} to rank0.txt")
+            check_fold_counts(f"train_main {dtype}", rec.epoch_fns(), eval_counts, n_eval)
             results[dtype] = {"launches": counts, "train_launches": train_counts,
                               "eval_fps": fps_lines,
                               "route_launches": routes,
@@ -1342,7 +1548,8 @@ def phase_train(tmp: str) -> dict:
         # the training model's eval forward stays on the library convs: K5 only
         model = init_train_state(_train_cfg(dtype, True), "cuda", seed=SEED).model
         results[dtype]["eval_graph"] = eval_graph_vs_eager(model, f"train {dtype}", store,
-                                                           PER_EVAL_FRAME)
+                                                           {**PER_EVAL_FRAME,
+                                                            **FOLD_PER_EVAL_FRAME})
         del model
         torch.cuda.empty_cache()
     return results
@@ -2368,9 +2575,11 @@ def _suite_run(tmp: str, mode: str, name: str, record: bool = False) -> dict:
 
 
 def launches_of(counts) -> dict:
-    """K1..K5 of a ``kernels/launches.py`` record (a replay's counts)."""
+    """K1..K5 and the fusion's launches of a ``kernels/launches.py`` record
+    (a replay's counts)."""
     names = {"K1": (dk, "LAUNCHES"), "K2": (k8, "LAUNCHES"), "K3": (tt, "FWD_LAUNCHES"),
-             "K4": (tt, "BWD_LAUNCHES"), "K5": (sb, "LAUNCHES")}
+             "K4": (tt, "BWD_LAUNCHES"), "K5": (sb, "LAUNCHES"),
+             "FOLD": (rfk, "FWD_LAUNCHES"), "FOLD_VJP": (rfk, "VJP_LAUNCHES")}
     return {k: counts.get((mod.__name__, attr), 0) for k, (mod, attr) in names.items()}
 
 
@@ -3260,8 +3469,9 @@ def phase_quality(tmp: str) -> dict:
         try:
             reset_counts()  # the main path's run starts here
             t0 = time.perf_counter()
-            res = train_main.main(argv + ["--outf", f"quality_{name}"]
-                                  + ([] if use_kernel else ["--no_pallas_train"]))
+            with plain_fold(not use_kernel):
+                res = train_main.main(argv + ["--outf", f"quality_{name}"]
+                                      + ([] if use_kernel else ["--no_pallas_train"]))
             wall = time.perf_counter() - t0
             counts = launch_counts()  # ... and ends here
         finally:
@@ -3471,6 +3681,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
         train_rows = phase_train_kernels()
+        fold_rows = phase_fold()
         tp_rows = phase_tp_kernels()
         train = phase_train(tmp)
         int8_rows = phase_int8_kernel()
@@ -3607,6 +3818,9 @@ def main() -> None:
         # gauss_blur_valid, the one-map entry of the same source (not on the step's path)
         "single_map": train_rows["K5_single"],
     })
+    kernels.append(fold_kernel_row(fold_rows, sum(
+        train[d]["launches"]["FOLD"] + train[d]["launches"]["FOLD_VJP"]
+        for d in ("bfloat16", "float32", "mixed"))))
     main_rows = [r for r in int8_rows if r["shape"] in INT8_MAIN_PATH_SHAPES]
     kernels.append({
         "name": "fused_conv_ps_act_int8[int8]", "route": "cuda",
@@ -3673,6 +3887,19 @@ if __name__ == "__main__":
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
             log("[profile] summary " + json.dumps(phase_profile(tmp, device["smi"])))
+        print(device["smi"])
+    elif sys.argv[1:2] == ["--fold"]:  # phases 1, 2 and 5b alone
+        device = phase_device()
+        phase_build()
+        rows = phase_fold()
+        with tempfile.TemporaryDirectory() as tmp:
+            main_path = fold_main_path(tmp)
+        row = fold_kernel_row(rows, main_path["launches"]["FOLD"]
+                              + main_path["launches"]["FOLD_VJP"])
+        log(f"[kernels] {row['name']}: {row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms by "
+            f"{row['bound_by']} ({row['bound_ms'] / row['ms']:.1%} of it reached), plain "
+            f"{row['plain_ms']:.3f} ms, launches {row['launches']}")
+        print(json.dumps({"kernels": [row], "fold_main_path": main_path}))
         print(device["smi"])
     elif sys.argv[1:2] == ["--quality"]:  # phases 1, 2 and 12 alone
         device = phase_device()

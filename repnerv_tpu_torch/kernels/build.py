@@ -129,6 +129,9 @@ def load_library() -> ctypes.CDLL:
             # mu_a, mu_b, e_aa, e_bb, e_ab, g_ssim, g_cs, a, b, d, N, H, W, C,
             # window, size, c1, c2, stream
             lib.repnerv_ssim_stats_vjp.argtypes = [*[p] * 10, i, i, i, i, p, i, f, f, p]
+            # gemm records, n, copy records, n, fold record, zero, n_zero, tile,
+            # stream
+            lib.repnerv_erb_fold.argtypes = [p, i, p, i, p, p, ctypes.c_longlong, i, p]
             # stream -> kernel, memset and memcpy nodes of the graph it is
             # capturing into; -1 when it captures none, -2 on an error
             lib.repnerv_capture_nodes.argtypes = [p]
@@ -141,6 +144,7 @@ def load_library() -> ctypes.CDLL:
                 lib.repnerv_gauss_blur_valid,
                 lib.repnerv_ssim_stats,
                 lib.repnerv_ssim_stats_vjp,
+                lib.repnerv_erb_fold,
             ):
                 fn.restype = i
             _LIB = lib

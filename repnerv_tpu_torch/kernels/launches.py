@@ -5,7 +5,8 @@ kernel: ``decode.LAUNCHES`` and ``ROUTE_LAUNCHES`` (K1),
 ``decode_int8.LAUNCHES`` and ``ROUTE_LAUNCHES`` (K2),
 ``train_tail.FWD_LAUNCHES``, ``FWD_ROUTE_LAUNCHES``, ``FWD_STRIDE_LAUNCHES``
 (K3), ``BWD_LAUNCHES`` and ``BWD_STRIDE_LAUNCHES`` (K4), ``ssim_blur.LAUNCHES``
-and ``ROUTE_LAUNCHES`` (K5).
+and ``ROUTE_LAUNCHES`` (K5), ``reparam_fuse.FWD_LAUNCHES`` and
+``VJP_LAUNCHES`` (ERB's branch fusion and its VJP).
 A CUDA graph's capture calls the wrappers without running a kernel, and its
 replay runs the kernels without calling a wrapper: the code that captures a
 graph takes the capture's counts back (``add(counts, -1)``) and adds them at
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple, Union
 
-from . import decode, decode_int8, ssim_blur, train_tail
+from . import decode, decode_int8, reparam_fuse, ssim_blur, train_tail
 
 _COUNTERS = (
     (decode, "LAUNCHES"),
@@ -30,6 +31,8 @@ _COUNTERS = (
     (train_tail, "BWD_STRIDE_LAUNCHES"),
     (ssim_blur, "LAUNCHES"),
     (ssim_blur, "ROUTE_LAUNCHES"),
+    (reparam_fuse, "FWD_LAUNCHES"),
+    (reparam_fuse, "VJP_LAUNCHES"),
 )
 
 Counts = Dict[Tuple[str, str], Union[int, Dict[str, int]]]
@@ -53,7 +56,7 @@ def since(before: Counts) -> Counts:
 
 
 def total(counts: Counts) -> int:
-    """The K1-K5 launches in ``counts`` (the by-route dicts split the same
+    """The kernel launches in ``counts`` (the by-route dicts split the same
     launches again)."""
     return sum(v for v in counts.values() if isinstance(v, int))
 

@@ -12,6 +12,11 @@ its exactness notes are the JAX package's:
   kernel, so (bias-free 1x1) o avgpool is W1x1 / 9 on every tap;
 * ECB's SeqConv3x3 edge branch fuses to k0 * scale * mask with bias
   b0 * sum(scale * mask) + bias.
+
+ERB's fusion runs on the card as two launches of
+``kernels/reparam_fuse.py`` (and its VJP as two more) when its branch
+tensors are CUDA f32 tensors; on any other tensors it is the plain algebra
+above (``fuse_erb_plain``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels import reparam_fuse
 
 SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
 SOBEL_Y = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
@@ -94,8 +101,30 @@ def fuse_acb(blk: nn.Module) -> Fused:
     return k, b
 
 
+def erb_tensors(blk: nn.Module):
+    """ERB's nine branch tensors in ``reparam_fuse.erb_fold``'s order."""
+    return (
+        blk.rbr_3x3_branch.weight, blk.rbr_3x3_branch.bias,
+        blk.rbr_1x3_branch.weight, blk.rbr_1x3_branch.bias,
+        blk.rbr_3x1_branch.weight, blk.rbr_3x1_branch.bias,
+        blk.rbr_1x1_3x3_1x1_branch_1x1_1.weight,
+        blk.rbr_1x1_3x3_1x1_branch_3x3.weight,
+        blk.rbr_1x1_3x3_1x1_branch_1x1_2.weight,
+    )
+
+
 def fuse_erb(blk: nn.Module) -> Fused:
-    """ACB's three kernels + the bias-free 1x1 -> 3x3 -> 1x1 branch."""
+    """ACB's three kernels + the bias-free 1x1 -> 3x3 -> 1x1 branch: the
+    kernels of ``reparam_fuse`` on CUDA f32 tensors, else the plain
+    version."""
+    tensors = erb_tensors(blk)
+    if reparam_fuse.takes(tensors):
+        return reparam_fuse.erb_fold(*tensors)
+    return fuse_erb_plain(blk)
+
+
+def fuse_erb_plain(blk: nn.Module) -> Fused:
+    """``fuse_erb`` in plain PyTorch, on any device and dtype."""
     k, b = fuse_acb(blk)
     seq = fuse_seq_3x3_1x1(
         fuse_seq_1x1_3x3(

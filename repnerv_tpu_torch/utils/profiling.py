@@ -16,6 +16,12 @@
   counts at its entry and exit (``csrc/graph_nodes.cu``): a range of the
   graph's ops, which the summary charges to the span at every replay of the
   graph (a replay runs no Python).  Otherwise it does nothing;
+* ``name_node(fragment)``, called by a kernel wrapper before it launches,
+  marks the op that the capture adds next as a kernel whose name holds
+  ``fragment``.  The summary matches a replay's ops of that name to those
+  nodes, in order, and the other ops to the other nodes, so that a kernel
+  on a stream of its own, which a replay may start before ops captured
+  ahead of it, is still charged to its own span;
 * ``StepTimer`` times blocks of work on a device: on a CUDA device with two
   CUDA events around the block and a wait for the second (the work is
   asynchronous), on the CPU with the host clock;
@@ -85,12 +91,37 @@ class GraphLabels:
     # (span path below the capture, first op, end op)
     ranges: List[Tuple[str, int, int]] = dataclasses.field(default_factory=list)
     stack: List[str] = dataclasses.field(default_factory=list)  # spans open in the capture
+    # kernel-name fragment -> the ops of kernels so named (``name_node``)
+    named: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
 
     def op_paths(self) -> List[str]:
         """The innermost span path of each op ("" outside every span)."""
         out = [""] * max(self.nodes, 0)
         for path, a, b in sorted(self.ranges, key=lambda r: r[0].count("/")):
             out[a:b] = [path] * (min(b, len(out)) - a)  # inner spans paint over outer ones
+        return out
+
+    def in_op_order(self, names: List[str]) -> Optional[List[int]]:
+        """The positions, in a replay's start order, of the ops of the graph
+        in its own order, from the replayed ops' ``names``: the ops whose
+        name holds a ``named`` fragment to those nodes in turn, the rest to
+        the rest.  None where the counts differ."""
+        if not self.named:
+            return list(range(len(names)))
+        out: List[Optional[int]] = [None] * len(names)
+        rest = list(range(len(names)))
+        for fragment, nodes in self.named.items():
+            mine = [i for i in rest if fragment in names[i]]
+            if len(mine) != len(nodes) or any(not 0 <= n < len(out) for n in nodes):
+                return None
+            for n, i in zip(nodes, mine):
+                out[n] = i
+            rest = [i for i in rest if fragment not in names[i]]
+        free = [n for n, i in enumerate(out) if i is None]
+        if len(free) != len(rest):
+            return None
+        for n, i in zip(free, rest):
+            out[n] = i
         return out
 
 
@@ -158,6 +189,15 @@ class _Span:
         return False
 
 
+def name_node(fragment: str) -> None:
+    """Mark the op that the current stream adds next to the labelled graph
+    being captured as a kernel whose name holds ``fragment`` (a kernel
+    wrapper calls it before it launches); nothing outside such a capture."""
+    g = _GRAPH
+    if g is not None:
+        g.named.setdefault(fragment, []).append(capture_nodes())
+
+
 def span(name: str):
     """A context manager that marks the block as the program span ``name``:
     a ``record_function`` range inside a ``trace`` block, a labelled range
@@ -200,7 +240,9 @@ def capture_graph(graph, stream, **kwargs):
             yield
             n = capture_nodes()
             # a count that failed leaves the graph uncounted: never attributed
-            g.nodes = n if all(a >= 0 and b >= 0 for _, a, b in g.ranges) else -1
+            counted = all(a >= 0 and b >= 0 for _, a, b in g.ranges) and all(
+                k >= 0 for nodes in g.named.values() for k in nodes)
+            g.nodes = n if counted else -1
         finally:
             _GRAPH = None
             _switch()
@@ -318,7 +360,8 @@ def summarize(events: list, tables=None):
     * An eagerly launched op is charged to the innermost span open on the
       launching thread at its runtime launch call, found by correlation id.
     * The ops of one ``cudaGraphLaunch`` inside a ``graph.replay:<id>`` span,
-      in start order: the k-th goes to the innermost label range of the
+      in start order (the kernels of a ``name_node`` fragment and the rest
+      each in their own): the k-th goes to the innermost label range of the
       table's graph (the n-th launch in the span replays its n-th graph)
       that covers k, below the replay span's path.  A replay whose launches
       or op counts differ from the table's is not guessed at: its ops go to
@@ -333,7 +376,7 @@ def summarize(events: list, tables=None):
     spans: Dict[str, SpanTime] = collections.defaultdict(SpanTime)
     by_thread = collections.defaultdict(list)
     launches = {}  # correlation -> (start, end, thread, name)
-    ops = []  # [start, dur, correlation]
+    ops = []  # [start, dur, correlation, name]
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
@@ -346,7 +389,7 @@ def summarize(events: list, tables=None):
             if corr is not None:
                 launches[corr] = (ts, ts + dur, (e.get("pid"), e.get("tid")), e.get("name", ""))
         elif cat in DEVICE_CATS:
-            ops.append((ts, dur, e.get("args", {}).get("correlation")))
+            ops.append((ts, dur, e.get("args", {}).get("correlation"), e.get("name", "")))
     lines = _Timelines(by_thread, spans)
 
     by_corr = collections.defaultdict(list)
@@ -373,17 +416,18 @@ def summarize(events: list, tables=None):
         tid = replay.rsplit("/", 1)[-1][len(REPLAY):]
         table = tables.get(tid)
         graphs = table.graphs if table is not None else []
-        if len(graphs) != len(corrs) or any(g.nodes != len(by_corr[c])
-                                            for c, g in zip(corrs, graphs)):
+        order = [g.in_op_order([ops[i][3] for i in by_corr[c]]) if g.nodes == len(by_corr[c])
+                 else None for c, g in zip(corrs, graphs)]
+        if len(graphs) != len(corrs) or any(o is None for o in order):
             unattributed.add(tid)
             continue
-        for c, g in zip(corrs, graphs):
-            for i, label in zip(by_corr[c], g.op_paths()):
+        for c, g, o in zip(corrs, graphs, order):
+            for k, label in zip(o, g.op_paths()):
                 if label:
-                    path_of[i] = f"{replay}/{label}"
+                    path_of[by_corr[c][k]] = f"{replay}/{label}"
             for label, _, _ in g.ranges:
                 spans[f"{replay}/{label}"].count += 1
-    for i, (_, dur, _) in enumerate(ops):
+    for i, (_, dur, _, _) in enumerate(ops):
         st = spans[path_of[i]]
         st.device_s += dur / 1e6
         st.ops += 1
@@ -391,7 +435,7 @@ def summarize(events: list, tables=None):
     idle: Dict[str, float] = {}
     busy_end = None
     for i in sorted(range(len(ops)), key=lambda i: ops[i][0]):
-        ts, dur, corr = ops[i]
+        ts, dur, corr, _ = ops[i]
         if busy_end is not None and ts > busy_end:
             gap = ts - busy_end
             launch = launches.get(corr)

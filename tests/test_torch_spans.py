@@ -121,6 +121,43 @@ def _replay_events(lab, n_ops, offset):
               for k in range(n_ops)]]
 
 
+def _named_replay(names):
+    """One replay of a 4-op graph whose op 1 is a kernel named "fold"
+    (``name_node``), the ops starting in the order of ``names``."""
+    lab = Labels("test")
+    lab.graphs.append(GraphLabels(nodes=4, ranges=[("a", 0, 1), ("a/f", 1, 2), ("c", 2, 4)],
+                                  named={"fold": [1]}))
+    events = [_host("req", 0, 300), _host(lab.span, 100, 50),
+              _launch("cudaGraphLaunch", 110, 10, 7)]
+    for k, name in enumerate(names):
+        events.append({**_op(200 + 20 * k, 10 + k, 7), "name": name})
+    return lab, events
+
+
+@pytest.mark.parametrize("names", [("x", "void fold<2>(P)", "y", "z"),
+                                   ("void fold<2>(P)", "x", "y", "z"),
+                                   ("x", "y", "z", "void fold<2>(P)")])
+def test_a_named_kernel_on_its_own_stream_keeps_its_span(names):
+    """The fold, captured as op 1 on a stream of its own, starts anywhere
+    in the replay: it goes to ``a/f``, and the other ops, in their own
+    start order, to ops 0, 2 and 3."""
+    lab, events = _named_replay(names)
+    spans, _, unattributed = summarize(events, {lab.id: lab})
+    base = f"req/{lab.span}"
+    assert unattributed == []
+    dur = {name: 10 + k for k, name in enumerate(names)}
+    assert {p: round(s.device_s * 1e6) for p, s in spans.items() if s.ops} == {
+        f"{base}/a": dur["x"], f"{base}/a/f": dur["void fold<2>(P)"],
+        f"{base}/c": dur["y"] + dur["z"]}
+
+
+def test_a_named_kernels_count_mismatch_leaves_the_graph_unattributed():
+    lab, events = _named_replay(("x", "void fold<2>(P)", "void fold<2>(P)", "z"))
+    assert summarize(events, {lab.id: lab})[2] == [lab.id]
+    lab, events = _named_replay(("x", "y", "w", "z"))
+    assert summarize(events, {lab.id: lab})[2] == [lab.id]
+
+
 @pytest.mark.parametrize("offset", [0.0, 7000.0, -5000.0])
 def test_replayed_ops_are_charged_by_position(offset):
     lab = _table()
