@@ -1057,7 +1057,7 @@ def check_fold_counts(label: str, epoch_fns: list, eval_counts: dict, n_eval: in
     """The fusion's launches in a run's replayed training step (each epoch
     function's replay: one step) and in its eval (the run's own deploy
     snapshots and --eval_fps decodes fold too, outside both)."""
-    got = [{k: launches_of(fn.replay_counts)[k] for k in FOLD_PER_STEP} for fn in epoch_fns]
+    got = [{k: launches_of(fn.captured.counts)[k] for k in FOLD_PER_STEP} for fn in epoch_fns]
     want_eval = {k: v * n_eval for k, v in FOLD_PER_EVAL_FRAME.items()}
     got_eval = {k: eval_counts.get(k, 0) for k in want_eval}
     log(f"[fold] {label}: fusion launches a replayed step {got} (expect {FOLD_PER_STEP} for "
@@ -1341,7 +1341,7 @@ def serve_graph_vs_eager(model, name: str) -> dict:
         changed = run(model, t_mat)
         recapture_equal = torch.equal(changed, decode_video(model, cfg, t_mat))
         moved = not torch.equal(changed, eager)
-        captures = run.captures
+        captures = run.captured.captures
         with torch.no_grad():
             w.copy_(kept)
         del run, changed, eager
@@ -1692,10 +1692,10 @@ def step_graph_vs_eager(dtype: str, store: FrameStore) -> dict:
     equal = torch.equal(graph, eager) and torch.equal(graph_psnr, eager_psnr)
     log(f"[step-graph] {dtype}: per-step losses and PSNR over {TRAIN_FRAMES} steps, "
         f"make_train_step's graph step vs the eager step: equal bits {equal} (largest loss "
-        f"difference {(graph - eager).abs().max().item():.3e}); {step.captures} capture")
-    if not equal or step.captures != 1:
+        f"difference {(graph - eager).abs().max().item():.3e}); {step.captured.captures} capture")
+    if not equal or step.captured.captures != 1:
         raise AssertionError(f"{dtype}: the graph step differs from the eager step "
-                             f"({step.captures} captures)")
+                             f"({step.captured.captures} captures)")
     reset_counts()  # an epoch of replays only starts here
     state, _ = run_epoch(state, step, store, cfg, 1)
     counts = launch_counts()  # ... and ends here
@@ -1703,10 +1703,10 @@ def step_graph_vs_eager(dtype: str, store: FrameStore) -> dict:
     want = {k: v * TRAIN_FRAMES for k, v in per_step.items()}
     got = {k: counts[k] for k in want}
     log(f"[step-graph] {dtype}: launches in an epoch of {TRAIN_FRAMES} replayed steps {got} "
-        f"(expect {want}: {per_step} a step); captures {step.captures}")
-    if got != want or step.captures != 1:
+        f"(expect {want}: {per_step} a step); captures {step.captured.captures}")
+    if got != want or step.captured.captures != 1:
         raise AssertionError(f"{dtype}: {got} launches in {TRAIN_FRAMES} replayed steps, "
-                             f"{step.captures} captures")
+                             f"{step.captured.captures} captures")
     del state, step
     torch.cuda.empty_cache()
     runs = {"eager": [], "step-graph": []}
@@ -1766,12 +1766,12 @@ def eval_graph_vs_eager(model, name: str, store: FrameStore, per_frame: dict) ->
     equal = [all(torch.equal(a, b) for a, b in zip(got, ref)) for got in (first, again)]
     want = {k: float(per_frame.get(k, 0)) for k in eager_frame}
     log(f"[eval-graph] {name}: per-frame PSNR and MS-SSIM of {n} frames at -b 1, graph vs eager "
-        f"eval step: equal bits {equal} (two sweeps of one step, {step.captures} capture); "
-        f"launches a frame: eager {eager_frame}, replayed {replay_frame} (expect {want}); the "
-        f"graph's pool {step.pool_bytes / 2**20:.1f} MiB")
-    if not all(equal) or step.captures != 1:
+        f"eval step: equal bits {equal} (two sweeps of one step, {step.captured.captures} "
+        f"capture); launches a frame: eager {eager_frame}, replayed {replay_frame} (expect "
+        f"{want}); the graph's pool {step.pool_bytes / 2**20:.1f} MiB")
+    if not all(equal) or step.captured.captures != 1:
         raise AssertionError(f"{name}: the eval graph's metrics differ from the eager step's "
-                             f"({step.captures} captures)")
+                             f"({step.captured.captures} captures)")
     if replay_frame != want or eager_frame != want:
         raise AssertionError(f"{name}: launches a frame eager {eager_frame}, replayed "
                              f"{replay_frame}, expected {want}")
@@ -2243,12 +2243,12 @@ def phase_outofcore(tmp: str, path_a_counts: dict) -> dict:
         if not ok or chunk != OOC_CHUNKS[0]:
             raise AssertionError(f"{dtype}: rung 2 differs from rung 1 by {rel} (chunk {chunk})")
         del a, resident
-        copies_before, graph = streaming.chunk_copies, streaming.graph
+        copies_before, graph = streaming.chunk_copies, streaming.captured.graph
         reset_counts()  # an epoch of rung-2 replays starts here
         b, _ = run_fused_epoch(b, streaming, host, cfg, 1)
         counts = launch_counts()  # ... and ends here
         n_copies = streaming.chunk_copies - copies_before
-        if streaming.graph is not graph:
+        if streaming.captured.graph is not graph:
             raise AssertionError(f"{dtype}: the second rung-2 epoch captured its step again")
         want = {k: v * TRAIN_FRAMES for k, v in PER_STEP.items()}
         log(f"[ooc] {dtype}: rung 2 launches in an epoch of {TRAIN_FRAMES} replayed steps "
@@ -2563,8 +2563,8 @@ def _suite_run(tmp: str, mode: str, name: str, record: bool = False) -> dict:
     if record:
         fns = rec.epoch_fns()
         models = {mid for _, mid, _ in rec.calls}
-        captures = sum(fn.captures for fn in fns)
-        replay = [{k: launches_of(fn.replay_counts)[k] for k in PER_STEP} for fn in fns]
+        captures = sum(fn.captured.captures for fn in fns)
+        replay = [{k: launches_of(fn.captured.counts)[k] for k in PER_STEP} for fn in fns]
         if captures != len(models) or len(models) != SUITE_VIDEOS or any(
                 r != PER_STEP for r in replay):
             raise AssertionError(f"suite {mode}: {captures} captures for {len(models)} videos, "
@@ -2757,8 +2757,8 @@ def phase_mesh_train(tmp: str) -> dict:
                     counts = launch_counts()  # ... and ends here
                 fn, = rec.epoch_fns()
                 runs[name] = {"losses": torch.cat([c[2].cpu() for c in rec.calls]),
-                              "replay": {k: launches_of(fn.replay_counts)[k] for k in PER_STEP},
-                              "type": type(fn).__name__, "captures": fn.captures,
+                              "replay": {k: launches_of(fn.captured.counts)[k] for k in PER_STEP},
+                              "type": type(fn).__name__, "captures": fn.captured.captures,
                               "history": res["history"], "launches": counts, "wall_s": wall}
         finally:
             os.chdir(cwd)
@@ -2857,7 +2857,7 @@ def gloo_rank_main(rank: int, init_file: str, out_path: str) -> None:
     end.record()
     end.synchronize()
     torch.save({"losses": losses, "weights": weights, "launches": counts, "grads": grads,
-                "replay": {k: launches_of(fn.replay_counts)[k] for k in PER_STEP},
+                "replay": {k: launches_of(fn.captured.counts)[k] for k in PER_STEP},
                 "ms": start.elapsed_time(end) / GLOO_STEPS, "backend": torch.distributed.get_backend(),
                 "device": str(mesh.device)}, out_path)
     torch.distributed.destroy_process_group()
@@ -3207,7 +3207,7 @@ def tp_rank_main(rank: int, world: int, init_file: str, out_path: str, names: st
                      "copy_ms": copy_ms,
                      "rank": mesh.rank, "data_index": mesh.data_index,
                      "model_index": mesh.model_index, "type": type(fn).__name__,
-                     "captures": fn.captures, "backend": torch.distributed.get_backend()}
+                     "captures": fn.captured.captures, "backend": torch.distributed.get_backend()}
         del state, fn
         torch.cuda.empty_cache()
     torch.save(out, out_path)
@@ -3343,8 +3343,8 @@ def _tp_train_main(tmp: str, smi: str) -> dict:
                 counts = launch_counts()  # ... and ends here
             fn, = rec.epoch_fns()
             runs[name] = {"losses": torch.cat([c[2].cpu() for c in rec.calls]),
-                          "replay": {k: launches_of(fn.replay_counts)[k] for k in PER_STEP},
-                          "type": type(fn).__name__, "captures": fn.captures,
+                          "replay": {k: launches_of(fn.captured.counts)[k] for k in PER_STEP},
+                          "type": type(fn).__name__, "captures": fn.captured.captures,
                           "launches": counts, "history": res["history"]}
     finally:
         os.chdir(cwd)
@@ -3656,7 +3656,7 @@ def phase_profile(tmp: str, smi: str, phase6_ms: dict = None) -> dict:
         + f"; all kernels {busy:.3f} ms a step, {len(kernels)} names")
     ms = made[0].ms()
     traced_ms, graph_ms = ms[:PROFILE_STEPS], ms[PROFILE_STEPS:]
-    captures = made[0].step.captures
+    captures = made[0].step.captured.captures
     beside = ("" if not phase6_ms else "; phase 6's bf16 graph steps in this run: "
               + ", ".join(f"{k} {v:.3f}" for k, v in phase6_ms.items()))
     log(f"[profile] ms a step (CUDA events around each step): traced "

@@ -592,7 +592,7 @@ class ShardedEpoch(FusedEpoch):
             self.step(state, store, buf, masks)
 
     def _replay(self) -> None:
-        before, after = self.graph
+        before, after = self.captured.graph
         before.replay()
         self.dp.reduce()
         after.replay()

@@ -50,7 +50,9 @@ The step's parts (``step.forward``, ``step.loss``, ``step.backward``,
 the decode's host work run inside ``utils/profiling.py::span``s, and every
 replay inside ``graph.replay:<id>`` of its capture's labels, so that a
 trace charges a replayed kernel to the span that launched it at the
-capture.
+capture.  The train step, the eval step and the decode each hold one
+``CapturedGraph``: the capture, the key it holds, the replay and its
+launch counts, and the release, in one place.
 """
 
 from __future__ import annotations
@@ -309,45 +311,85 @@ def mark_written(tensors) -> None:
         torch.autograd.graph.increment_version(t)
 
 
-def capture_after_eager(device: torch.device, eager: Callable[[], None],
-                        capture: Callable[[torch.cuda.Stream], object], kind: str):
-    """Run ``eager()`` on a new side stream of ``device``, then
-    ``capture(side)``, which captures its CUDA graphs on that stream through
-    ``utils/profiling.py::capture_graph``, with cyclic collection held off.
-    Returns (what ``capture`` returned, the kernel launches of one replay,
-    the capture's span labels: a ``Labels`` whose id begins with ``kind``).
-    The caller replays inside ``span(labels.span)``, by which a trace's
-    summary charges each replayed op to the span that launched it at the
-    capture.
+class CapturedGraph:
+    """The CUDA-graph lifecycle of one owner: the train step's
+    (``FusedEpoch`` and its subclasses), the eval step's (``EvalStep``) or
+    the decode's (``VideoDecode``).  ``graph`` is what the owner's capture
+    callable returned (a ``CUDAGraph``, a graph and its outputs, or the
+    sharded step's two graphs), ``key`` what it was captured on, ``counts``
+    the kernel launches of one replay, ``labels`` the capture's span labels
+    and ``captures`` the captures since construction.  Each owner computes
+    its own key (the train key holds addresses, since the step writes the
+    weights; the eval and decode keys hold versions too) and hands it over
+    as a callable: the train key reads tensors that the step's first run
+    makes (Adam's state, the sharded step's bucket), so it is taken only
+    where a graph is held and once a capture is done.  ``holds`` is the one
+    place that compares it."""
 
-    The eager run builds the kernels and fills every cache a capture must
-    find full (packed weights, PE factors, cuDNN's and cuBLAS's plans).  Each
-    capture has a stream of its own, not torch's one default capture stream:
-    cuBLAS keeps one workspace per stream, which a graph then holds, and two
-    graphs captured on one stream and replayed side by side (the parallel
-    suite) would share it.  The capture runs no kernel: its launch counts are
-    taken back here, and the caller adds them at every replay
-    (``kernels/launches.py``)."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        eager()
-    torch.cuda.current_stream(device).wait_stream(side)
-    before = launches.snapshot()
-    # no cyclic collection inside the capture: freeing pinned memory that
-    # a copy used makes the host allocator record and query CUDA events,
-    # which invalidates a capture (torch.cuda.graph collects first)
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with labelled(kind) as labels:
-            captured = capture(side)
-    finally:
-        if collecting:
-            gc.enable()
-    counts = launches.since(before)
-    launches.add(counts, -1)
-    return captured, counts, labels
+    def __init__(self):
+        self.graph = None
+        self.key = None
+        self.counts: Optional[launches.Counts] = None
+        self.labels = None
+        self.captures = 0
+
+    def holds(self, key: Callable[[], object]) -> bool:
+        """Whether a graph is captured, on ``key()``."""
+        return self.graph is not None and self.key == key()
+
+    def drop(self) -> None:
+        """Let the graph and its pool go: the buffers it reads changed, or
+        its owner releases it."""
+        self.graph = self.key = None
+
+    def capture(self, device: torch.device, key: Callable[[], object],
+                eager: Callable[[], None], capture: Callable[[torch.cuda.Stream], object],
+                kind: str):
+        """Drop the old graph, run ``eager()`` on a new side stream of
+        ``device``, then ``capture(side)``, which captures its CUDA graphs on
+        that stream through ``utils/profiling.py::capture_graph``, with
+        cyclic collection held off and its labels a ``Labels`` whose id
+        begins with ``kind``.  Keeps what ``capture`` returned as ``graph``,
+        on ``key()``, taken once the capture is done.
+
+        The eager run builds the kernels and fills every cache a capture must
+        find full (packed weights, PE factors, cuDNN's and cuBLAS's plans).
+        Each capture has a stream of its own, not torch's one default capture
+        stream: cuBLAS keeps one workspace per stream, which a graph then
+        holds, and two graphs captured on one stream and replayed side by
+        side (the parallel suite) would share it.  The capture runs no
+        kernel: its launch counts are taken back here, and ``replay`` adds
+        them (``kernels/launches.py``)."""
+        self.drop()  # let the old graph's memory go first
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            eager()
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = launches.snapshot()
+        # no cyclic collection inside the capture: freeing pinned memory that
+        # a copy used makes the host allocator record and query CUDA events,
+        # which invalidates a capture (torch.cuda.graph collects first)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with labelled(kind) as labels:
+                graph = capture(side)
+        finally:
+            if collecting:
+                gc.enable()
+        self.counts, self.labels = launches.since(before), labels
+        launches.add(self.counts, -1)
+        self.graph, self.key = graph, key()
+        self.captures += 1
+
+    def replay(self, run: Callable[[], None]) -> None:
+        """``run()``, which replays the graph, inside ``span(labels.span)``,
+        by which a trace's summary charges each replayed op to the span that
+        launched it at the capture; then the replay's launches are counted."""
+        with span(self.labels.span):
+            run()
+        launches.add(self.counts)
 
 
 @dataclass
@@ -389,11 +431,7 @@ class FusedEpoch:
         self.schedule = _schedule(cfg, steps_per_epoch)
         self.update = _make_update(cfg, with_msssim, param_transform)
         self.buffers: Optional[_StepBuffers] = None
-        self.graph = None  # torch.cuda.CUDAGraph of the step (_capture_graphs)
-        self.graph_key = None  # what the graph was captured on (_graph_key)
-        self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
-        self.labels = None  # the replay's span labels (capture_after_eager)
-        self.captures = 0  # captures since construction
+        self.captured = CapturedGraph()  # of _capture_graphs, on _graph_key
 
     def _check_store(self, store: FrameStore) -> None:
         if not store.resident:
@@ -412,7 +450,7 @@ class FusedEpoch:
     def _new_buffers(self, dev: torch.device, rows: int, b: int, n_t: int) -> _StepBuffers:
         """Zeroed buffers of ``rows`` steps of ``b`` frames and ``n_t`` frame
         times; the graph, which reads the old ones, is dropped."""
-        self.graph = self.graph_key = None
+        self.captured.drop()
         n_stage = sum(head_plan(self.cfg.model))
 
         def zeros(*shape, dtype=torch.float32):
@@ -470,19 +508,7 @@ class FusedEpoch:
         return graph
 
     def _replay(self) -> None:
-        self.graph.replay()
-
-    def _capture(self, state: TrainState, store: FrameStore, buf: _StepBuffers,
-                 masks: Masks) -> None:
-        """Run one step eagerly on a side stream, then capture the step on
-        that stream (``capture_after_eager``)."""
-        self.graph = self.graph_key = None  # let the old graph's memory go first
-        with span("train.capture"):
-            graph, self.replay_counts, self.labels = capture_after_eager(
-                buf.k.device, lambda: self.step(state, store, buf, masks),
-                lambda side: self._capture_graphs(state, store, buf, masks, side), "step")
-        self.graph, self.graph_key = graph, self._graph_key(state, store, masks)
-        self.captures += 1
+        self.captured.graph.replay()
 
     def _start(self, state: TrainState, store: FrameStore, perm: np.ndarray):
         """The epoch's buffers with its rows, t, learning rates and k = 0;
@@ -507,13 +533,15 @@ class FusedEpoch:
             for _ in range(n):
                 self.step(state, store, buf, masks)
             return
-        if n and (self.graph is None or self.graph_key != self._graph_key(state, store, masks)):
-            self._capture(state, store, buf, masks)  # a step runs in here
+        key = partial(self._graph_key, state, store, masks)
+        if n and not self.captured.holds(key):
+            with span("train.capture"):  # one step runs eagerly in here
+                self.captured.capture(
+                    buf.k.device, key, lambda: self.step(state, store, buf, masks),
+                    lambda side: self._capture_graphs(state, store, buf, masks, side), "step")
             n -= 1
         for _ in range(n):
-            with span(self.labels.span):
-                self._replay()
-            launches.add(self.replay_counts)
+            self.captured.replay(self._replay)
         if n:
             mark_written([*state.model.parameters(), *state.model.buffers()])
 
@@ -661,7 +689,7 @@ class StreamingEpoch(FusedEpoch):
         if self.ring is None or tuple(self.ring.shape) != shape or self.ring.device != store.device:
             if self.copy_stream is not None:
                 self.copy_stream.synchronize()  # no copy into the old ring is pending
-            self.graph = self.graph_key = None  # it reads the old ring
+            self.captured.drop()  # it reads the old ring
             self.ring = torch.zeros(shape, dtype=torch.uint8, device=store.device)
             self.staging = []
             if store.device.type == "cuda":
@@ -872,12 +900,8 @@ class EvalStep:
         self.batch = _make_eval_batch(cfg, with_msssim)
         self.frames: Optional[torch.Tensor] = None  # [B, H, W, 3] f32: the batch's frames
         self.t: Optional[torch.Tensor] = None  # [B] f32: its frame times
-        self.out = None  # (outputs, aux) of the captured batch, in the graph's pool
-        self.graph = None  # torch.cuda.CUDAGraph of one batch
-        self.graph_key = None  # what the graph was captured on (eval_graph_key)
-        self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
-        self.labels = None  # the replay's span labels (capture_after_eager)
-        self.captures = 0  # captures since construction
+        # (graph of one batch, its (outputs, aux) in the graph's pool), on eval_graph_key
+        self.captured = CapturedGraph()
         self.pool_bytes = 0  # device memory the last capture reserved for the graph's pool
 
     def release(self) -> None:
@@ -885,7 +909,8 @@ class EvalStep:
         the weights or runs other device work before its next sweep calls it
         after a sweep: the key could not match again, and the pool would be
         held through that work."""
-        self.graph = self.graph_key = self.out = self.frames = self.t = None
+        self.captured.drop()
+        self.frames = self.t = None
 
     @torch.no_grad()
     def __call__(self, model: nn.Module, frames: torch.Tensor, t: torch.Tensor):
@@ -900,23 +925,21 @@ class EvalStep:
 
     def _run(self, model: Generator, frames: torch.Tensor, t: torch.Tensor):
         key = eval_graph_key(model, frames.shape, self.with_msssim)
-        held = self.graph_key
+        held = self.captured.key
         if held is not None and key[0] == held[0] and key[2:] == held[2:] and key[1] < held[1]:
             return self.batch(model, frames, t)  # the short last batch
-        if self.graph is None or key != held:
+        if not self.captured.holds(lambda: key):
             return self._capture(model, frames, t, key)
         self.frames.copy_(frames)
         self.t.copy_(t)
-        with span(self.labels.span):
-            self.graph.replay()
-        launches.add(self.replay_counts)
-        outs, aux = self.out
+        graph, (outs, aux) = self.captured.graph
+        self.captured.replay(graph.replay)
         return [o.clone() for o in outs], {k: v.clone() for k, v in aux.items()}
 
     def _capture(self, model: Generator, frames: torch.Tensor, t: torch.Tensor, key: tuple):
         """The batch eagerly on a side stream, then its capture; returns the
         eager batch's outputs."""
-        self.graph = self.graph_key = self.out = None  # let the old graph's memory go first
+        self.captured.drop()  # let the old graph's memory go before new buffers
         dev = frames.device
         if self.frames is None or self.frames.shape != frames.shape or self.frames.device != dev:
             self.frames, self.t = torch.empty_like(frames), torch.empty_like(t)
@@ -933,10 +956,9 @@ class EvalStep:
                 self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             return graph, out
 
-        (graph, self.out), self.replay_counts, self.labels = capture_after_eager(
-            dev, lambda: first.append(self.batch(model, self.frames, self.t)), capture, "eval")
-        self.graph, self.graph_key = graph, key
-        self.captures += 1
+        self.captured.capture(dev, lambda: key,
+                              lambda: first.append(self.batch(model, self.frames, self.t)),
+                              capture, "eval")
         outs, aux = first[0]
         main = torch.cuda.current_stream(dev)
         for x in (*outs, *aux.values()):
@@ -1037,17 +1059,13 @@ class VideoDecode:
         self.t: Optional[torch.Tensor] = None  # [rows, B] f32: the batches' frame times
         self.k: Optional[torch.Tensor] = None  # [1] int64: the batch, advanced by the decode
         self.sums: Optional[torch.Tensor] = None  # [rows] f32: the checksums
-        self.out: Optional[torch.Tensor] = None  # the captured batch's frames (keep_frames)
-        self.graph = None  # torch.cuda.CUDAGraph of one batch
-        self.graph_key = None  # what the graph was captured on (decode_graph_key)
-        self.replay_counts: Optional[launches.Counts] = None  # kernel launches of a replay
-        self.labels = None  # the replay's span labels (capture_after_eager)
-        self.captures = 0  # captures since construction
+        # (graph of one batch, its frames in the graph's pool), on decode_graph_key
+        self.captured = CapturedGraph()
 
     def _buffers(self, device: torch.device, n: int, b: int) -> None:
         t = self.t
         if t is None or t.shape[0] < n or t.shape[1] != b or t.device != device:
-            self.graph = self.graph_key = self.out = None  # it reads the old buffers
+            self.captured.drop()  # it reads the old buffers
             self.t = torch.zeros(max(n, 1), b, device=device)
             self.k = torch.zeros(1, dtype=torch.long, device=device)
             self.sums = torch.zeros(max(n, 1), device=device)
@@ -1065,7 +1083,6 @@ class VideoDecode:
 
     def _capture(self, model: Generator, key: tuple, frames: Optional[torch.Tensor]) -> None:
         """The first batch eagerly (into ``frames[0]``), then the capture."""
-        self.graph = self.graph_key = self.out = None  # let the old graph's memory go first
 
         def eager():
             out = self.step(model)
@@ -1080,11 +1097,7 @@ class VideoDecode:
                 out = self.step(model)
             return graph, out
 
-        (graph, out), self.replay_counts, self.labels = capture_after_eager(
-            self.t.device, eager, capture, "decode")
-        self.graph, self.graph_key = graph, key
-        self.out = out if self.keep_frames else None
-        self.captures += 1
+        self.captured.capture(self.t.device, lambda: key, eager, capture, "decode")
 
     def _prepare(self, model: Generator, t_batches, device: torch.device):
         """The buffers with the batches' times and ``k = 0``; returns (n,
@@ -1109,16 +1122,15 @@ class VideoDecode:
         if device.type != "cuda":
             return decode_video(model, self.cfg, t_batches, keep_frames=self.keep_frames)
         first = 0
-        if n and (self.graph is None or self.graph_key != key):
+        if n and not self.captured.holds(lambda: key):
             self._capture(model, key, frames)  # the first batch runs in here
             first = 1
         for i in range(first, n):
-            with span(self.labels.span):
-                self.graph.replay()
-            launches.add(self.replay_counts)
+            graph, out = self.captured.graph
+            self.captured.replay(graph.replay)
             if frames is not None:
                 with span("decode.copy_out"):
-                    frames[i].copy_(self.out)
+                    frames[i].copy_(out)
         if frames is not None:
             return frames
         with span("decode.copy_out"):

@@ -11,7 +11,7 @@
   block's ``Trace``;
 * ``span(name)`` marks a stretch of the program as one of its layers.
   Inside a ``trace`` block it is a ``record_function`` range.  While
-  ``capture_after_eager`` (``train/loop.py``) captures a CUDA graph through
+  ``CapturedGraph.capture`` (``train/loop.py``) captures a CUDA graph through
   ``capture_graph``, it records the graph's kernel, memset and memcpy node
   counts at its entry and exit (``csrc/graph_nodes.cu``): a range of the
   graph's ops, which the summary charges to the span at every replay of the
@@ -126,7 +126,7 @@ class GraphLabels:
 
 
 class Labels:
-    """The label table of one ``capture_after_eager``: a ``GraphLabels``
+    """The label table of one ``CapturedGraph.capture``: a ``GraphLabels``
     for each CUDA graph it captured, in order.  Its graphs replay inside
     ``span(labels.span)`` (``graph.replay:<id>``), by which the summary of a
     trace finds the table."""

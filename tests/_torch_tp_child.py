@@ -72,7 +72,7 @@ def run(case):
         for epoch in range(case["epochs"]):
             state, m = loop.run_fused_epoch(state, fn, store, c, epoch)
             hist.append((m.loss, m.psnr.tolist(), m.lr))
-        out.update(history=hist, type=type(fn).__name__, captures=fn.captures,
+        out.update(history=hist, type=type(fn).__name__, captures=fn.captured.captures,
                    weights=tensors(sharding.gather_train_state(state, mesh).model.state_dict()))
     elif job == "relayout":
         # a state that has stepped (Adam's moments and count), laid out and back

@@ -122,7 +122,7 @@ def test_cpu_model_runs_decode_video(keep_frames):
     run = loop.make_video_decode_fn(cfg, keep_frames=keep_frames)
     assert isinstance(run, loop.VideoDecode)
     assert torch.equal(run(gen, t), loop.decode_video(gen, cfg, t, keep_frames=keep_frames))
-    assert run.graph is None and run.captures == 0 and run.t is None
+    assert run.captured.graph is None and run.captured.captures == 0 and run.t is None
 
 
 @pytest.mark.parametrize("keep_frames", [True, False])
@@ -153,14 +153,15 @@ def test_buffers_grow_and_follow_the_batch():
     cpu = torch.device("cpu")
     run._buffers(cpu, 3, 4)
     t0 = run.t
-    run.graph = run.graph_key = object()  # stands for a captured graph
+    run.captured.graph = run.captured.key = object()  # stands for a captured graph
     run._buffers(cpu, 2, 4)
-    assert run.t is t0 and run.graph is not None
+    assert run.t is t0 and run.captured.graph is not None
     run._buffers(cpu, 5, 4)
-    assert tuple(run.t.shape) == (5, 4) and run.graph is None and run.graph_key is None
-    run.graph = object()
+    assert tuple(run.t.shape) == (5, 4)
+    assert run.captured.graph is None and run.captured.key is None
+    run.captured.graph = object()
     run._buffers(cpu, 1, 2)
-    assert tuple(run.t.shape) == (1, 2) and run.graph is None
+    assert tuple(run.t.shape) == (1, 2) and run.captured.graph is None
 
 
 def _int8_model(seed=6) -> Generator:
@@ -328,8 +329,8 @@ def test_graph_decode_equals_eager_decode_on_the_card(cuda, kind):
         assert _k12(launches.since(before)) == (3 * per_batch[0], 3 * per_batch[1])
         assert torch.equal(got, ref)
         assert torch.equal(sums(gen, t), ref_sums)
-    assert run.captures == sums.captures == 1
-    assert run.replay_counts is not None and _k12(run.replay_counts) == per_batch
+    assert run.captured.captures == sums.captured.captures == 1
+    assert run.captured.counts is not None and _k12(run.captured.counts) == per_batch
     got2 = run(gen, t)
     assert got2.data_ptr() != got.data_ptr()  # new tensors at every call
     one = loop.make_decode_fn(cfg)
@@ -354,13 +355,13 @@ def test_graph_decode_recaptures_after_a_change_on_the_card(cuda, kind):
         if kind == "int8":
             gen.int8["3"].packed.scale.mul_(0.5)  # what K2 reads
     got = run(gen, t)
-    assert run.captures == 2
+    assert run.captured.captures == 2
     assert torch.equal(got, loop.decode_video(gen, cfg, t))
     assert not torch.equal(got, first)
     assert torch.equal(run(gen, torch.cat([t, t])), torch.cat([got, got]))
-    assert run.captures == 3
+    assert run.captured.captures == 3
     assert torch.equal(run(gen, t.reshape(6, 2)), loop.decode_video(gen, cfg, t.reshape(6, 2)))
-    assert run.captures == 4
+    assert run.captured.captures == 4
 
 
 @pytest.mark.gpu

@@ -100,7 +100,7 @@ def test_evaluate_matches_jax_evaluate(deploy):
         _, got = step(gen, torch.from_numpy(video[lo:hi]), torch.from_numpy(t_all[lo:hi]))
         assert tuple(got["psnr"].shape) == np.asarray(ref["psnr"]).shape == (hi - lo, 1)
         np.testing.assert_allclose(got["psnr"].numpy(), np.asarray(ref["psnr"]), atol=1e-3)
-    assert step.graph is None and step.captures == 0
+    assert step.captured.graph is None and step.captured.captures == 0
 
 
 def _tiny(**over) -> ModelConfig:
@@ -126,7 +126,7 @@ def test_cpu_eval_step_is_the_eager_body(training):
     assert set(aux) == {"psnr", "msssim"}
     assert all(torch.equal(aux[k], ref_aux[k]) for k in aux)
     assert not any(o.requires_grad for o in outs)
-    assert step.captures == 0 and step.graph is None
+    assert step.captured.captures == 0 and step.captured.graph is None
 
 
 def _key(gen, shape=(2, 12, 16, 3), msssim=True):
@@ -305,13 +305,13 @@ def test_eval_graph_equals_eager_on_the_card(cuda, kind):
             assert torch.equal(g["psnr"], r["psnr"]) and torch.equal(g["msssim"], r["msssim"])
         if sweep == 0:
             first = got
-    assert step.captures == 1 and _k(step.replay_counts) == per_batch
-    assert step.graph_key[1] == 2 and step.pool_bytes > 0
+    assert step.captured.captures == 1 and _k(step.captured.counts) == per_batch
+    assert step.captured.key[1] == 2 and step.pool_bytes > 0
     for g, r in zip(first, ref):  # not overwritten by the second sweep
         assert torch.equal(g["psnr"], r["psnr"])
     assert gen.training == kind.startswith("train")
     psnr, msssim = loop.evaluate(gen, step, store, cfg)
-    assert step.captures == 1
+    assert step.captured.captures == 1
     want = torch.cat([r["psnr"] for r in ref]).mean(dim=0).cpu().numpy()
     np.testing.assert_array_equal(psnr, want)
 
@@ -334,11 +334,11 @@ def test_eval_graph_recaptures_after_a_change_on_the_card(cuda, kind):
             gen.int8["2"].packed.scale.mul_(0.5)
     ref = _eager_sweep(gen, cfg, store)
     psnr, _ = loop.evaluate(gen, step, store, cfg)
-    assert step.captures == 2
+    assert step.captured.captures == 2
     np.testing.assert_array_equal(psnr, torch.cat([r["psnr"] for r in ref]).mean(0).cpu().numpy())
     cfg4 = dataclasses.replace(cfg, data=DataConfig(batch_size=4))
     psnr4, _ = loop.evaluate(gen, step, store, cfg4)
-    assert step.captures == 3 and np.isfinite(psnr4).all()
+    assert step.captured.captures == 3 and np.isfinite(psnr4).all()
 
 
 @pytest.mark.gpu
@@ -358,11 +358,11 @@ def test_eval_graph_sees_weights_the_fused_epoch_replays_wrote_on_the_card(cuda)
     for epoch in range(2):
         state, _ = loop.run_fused_epoch(state, epoch_fn, store, cfg, epoch)
         psnr, _ = loop.evaluate(state.model, step, store, ecfg)
-        assert step.captures == epoch + 1
+        assert step.captured.captures == epoch + 1
         ref = _eager_sweep(copy.deepcopy(state.model), ecfg, store)
         want = torch.cat([r["psnr"] for r in ref]).mean(0).cpu().numpy()
         np.testing.assert_array_equal(psnr, want)
-    assert epoch_fn.captures == 1
+    assert epoch_fn.captured.captures == 1
 
 
 @pytest.mark.gpu
@@ -380,9 +380,9 @@ def test_eval_graph_release_gives_its_pool_back_on_the_card(cuda):
     held = torch.cuda.memory_reserved(cuda)
     step.release()
     torch.cuda.empty_cache()
-    assert step.graph is None and step.out is None and step.frames is None
+    assert step.captured.graph is None and step.frames is None and step.t is None
     assert held - torch.cuda.memory_reserved(cuda) >= step.pool_bytes > 0
     again = loop.evaluate(gen, step, store, cfg)
-    assert step.captures == 2
+    assert step.captured.captures == 2
     for a, b in zip(again, first):
         np.testing.assert_array_equal(a, b)

@@ -416,9 +416,9 @@ def test_graph_holds_remat_and_the_restored_state_on_the_card(cuda):
     after = [t for st in b.optimizer.state.values() for t in st.values()]
     assert len(after) == len(tensors) and all(x is y for x, y in zip(after, tensors))
     assert all(not t.any() for t in tensors)
-    graph_obj = epoch_fn.graph
+    graph_obj = epoch_fn.captured.graph
     b, m = loop.run_fused_epoch(b, epoch_fn, store, cfg, 1)
-    assert epoch_fn.graph is graph_obj  # replayed, not captured again
+    assert epoch_fn.captured.graph is graph_obj  # replayed, not captured again
 
     ref = loop.init_train_state(cfg, cuda, seed=3)
     ref.model.load_state_dict(best)

@@ -436,9 +436,9 @@ def test_streaming_graph_equals_resident_graph_on_the_card(cuda, dtype, tol, sou
         got = aux["loss"].cpu()
         rel = ((got - ref).abs() / ref.abs()).max().item()
         assert rel <= tol, (chunk, rel)
-        assert streaming.replay_counts == resident.replay_counts
+        assert streaming.captured.counts == resident.captured.counts
         assert streaming.chunk_copies == -(-6 // chunk)
         assert b.step == 6
-        graph = streaming.graph
+        graph = streaming.captured.graph
         b, _ = streaming(b, host_store, loop.epoch_rows(device_store, cfg, 1), None, chunk)
-        assert streaming.graph is graph  # the next epoch replays, it captures nothing
+        assert streaming.captured.graph is graph  # the next epoch replays, it captures nothing

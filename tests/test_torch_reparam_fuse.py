@@ -379,7 +379,7 @@ def test_cuda_replayed_step_counts_the_fusions_launches(cuda, branch_type, per_s
     step(state, frames, t)
     torch.cuda.synchronize()
     counts = launches.since(before)
-    assert step.captures == 1
+    assert step.captured.captures == 1
     assert counts[rf.__name__, "FWD_LAUNCHES"] == per_step
     assert counts[rf.__name__, "VJP_LAUNCHES"] == per_step
 

@@ -676,7 +676,7 @@ def test_nccl_world_of_one_equals_the_plain_step_on_the_card():
             for epoch in range(2):
                 state, aux = fn(state, store, loop.epoch_rows(store, cfg, epoch), None)
                 losses.append(aux["loss"].cpu().clone())
-            assert fn.captures == 1
+            assert fn.captured.captures == 1
             runs.append((torch.cat(losses), _weights(state.model)))
         assert torch.equal(runs[0][0], runs[1][0])
         for k, v in runs[0][1].items():

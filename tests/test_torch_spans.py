@@ -260,14 +260,15 @@ def test_a_captured_graph_charges_each_kernel_to_its_span(tmp_path):
             body()
         return g
 
-    graph, _, labels = loop.capture_after_eager(dev, body, capture, "test")
+    captured = loop.CapturedGraph()
+    captured.capture(dev, lambda: None, body, capture, "test")
+    graph, labels = captured.graph, captured.labels
     (g,) = labels.graphs
     assert g.nodes == 5 and sorted(g.ranges) == [("one", 0, 2), ("two", 3, 5),
                                                  ("two/inner", 3, 4)]
     with trace(str(tmp_path), dev) as rec:
         for _ in range(3):
-            with span(labels.span):
-                graph.replay()
+            captured.replay(graph.replay)
     assert rec.unattributed == []
     ops = {p.split(labels.span + "/")[-1]: s.ops for p, s in rec.spans.items()
            if labels.span in p and s.ops}
@@ -322,8 +323,8 @@ def test_the_replayed_flagship_step_matches_the_eager_step_span_by_span(tmp_path
     with trace(str(tmp_path / "graph"), "cuda") as rec:
         graph(state, frames, t)
     assert rec.unattributed == []
-    (g,) = graph.labels.graphs
-    replay = next(p for p in rec.spans if p.endswith(graph.labels.span))
+    (g,) = graph.captured.labels.graphs
+    replay = next(p for p in rec.spans if p.endswith(graph.captured.labels.span))
     assert rec.spans[replay].count == 1 and sum(
         s.ops for p, s in rec.spans.items() if p.startswith(replay)) == g.nodes
     want = _top_ops(eager_rec)

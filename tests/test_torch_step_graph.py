@@ -172,7 +172,7 @@ def test_cpu_step_is_the_eager_step_bit_for_bit(dtype, batch_size):
         assert torch.equal(x["psnr"], y["psnr"]) and x["lr"] == y["lr"]
     wa, wb = _weights(a.model), _weights(b.model)
     assert all(torch.equal(wa[k], wb[k]) for k in wa)
-    assert graph.step.graph is None and graph.step.captures == 0
+    assert graph.step.captured.graph is None and graph.step.captured.captures == 0
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -218,11 +218,28 @@ def test_step_buffers_follow_the_batch_shape():
     buf = step._step_buffers(x)
     assert torch.equal(buf.perm, torch.arange(2).reshape(1, 2))
     assert buf.lr.shape == (1,) and buf.t_all.shape == (2,) and step.frames.shape == x.shape
-    step.graph = object()
-    assert step._step_buffers(torch.ones(2, 12, 16, 3)) is buf and step.graph is not None
+    step.captured.graph = object()
+    assert step._step_buffers(torch.ones(2, 12, 16, 3)) is buf and step.captured.graph is not None
     buf2 = step._step_buffers(torch.zeros(3, 12, 16, 3))
-    assert buf2 is not buf and step.graph is None
+    assert buf2 is not buf and step.captured.graph is None
     assert buf2.perm.shape == (1, 3) and step.frames.shape == (3, 12, 16, 3)
+
+
+def test_captured_graph_takes_the_key_only_where_a_graph_is_held():
+    """``CapturedGraph.holds`` reads its key only while a graph is held: the
+    train key reads tensors that the step's first run makes (the sharded
+    step's bucket is None before it), so nothing takes it before the first
+    capture.  A graph held on another key is not held; ``drop`` lets it go."""
+    captured = loop.CapturedGraph()
+
+    def no_key():
+        raise AssertionError("the key was taken with no graph held")
+
+    assert not captured.holds(no_key)
+    captured.graph, captured.key = object(), ("a", 1)
+    assert captured.holds(lambda: ("a", 1)) and not captured.holds(lambda: ("a", 2))
+    captured.drop()
+    assert captured.graph is None and captured.key is None and not captured.holds(no_key)
 
 
 def test_mark_written_moves_every_version_key():
@@ -301,12 +318,12 @@ def test_graph_step_equals_eager_step_on_the_card(cuda, dtype):
     assert all(torch.equal(x["psnr"], y["psnr"]) for x, y in zip(graph.auxes, eager.auxes))
     wa, wb = _weights(a.model), _weights(b.model)
     assert all(torch.equal(wa[k], wb[k]) for k in wa)
-    assert graph.step.captures == 1 and b.step == 12
+    assert graph.step.captured.captures == 1 and b.step == 12
     kernel = dtype != "mixed"
     assert counts["repnerv_tpu_torch.kernels.train_tail", "FWD_LAUNCHES"] == 12 * 2 * kernel
     assert counts["repnerv_tpu_torch.kernels.train_tail", "BWD_LAUNCHES"] == 12 * 2 * kernel
     assert counts["repnerv_tpu_torch.kernels.ssim_blur", "LAUNCHES"] == 12 * 2
-    per = graph.step.replay_counts
+    per = graph.step.captured.counts
     assert per["repnerv_tpu_torch.kernels.ssim_blur", "LAUNCHES"] == 2
     assert len({a["loss"].data_ptr() for a in graph.auxes}) == 12
 
@@ -325,7 +342,7 @@ def test_graph_step_recaptures_for_a_new_optimizer_on_the_card(cuda):
     b = loop.init_train_state(cfg, cuda, seed=2)
     b, _ = loop.run_epoch(b, step, store, cfg, 0, max_steps=3)
     a, _ = loop.run_epoch(a, eager, store, cfg, 0, max_steps=3)
-    assert step.captures == 1
+    assert step.captured.captures == 1
     for s in (a, b):  # the same new optimizer over the same weights
         s.optimizer = loop.make_optimizer(cfg, s.model)
     with torch.no_grad():
@@ -334,15 +351,15 @@ def test_graph_step_recaptures_for_a_new_optimizer_on_the_card(cuda):
     ra, rb = Recorder(eager), Recorder(step)
     a, _ = loop.run_epoch(a, ra, store, cfg, 1)
     b, _ = loop.run_epoch(b, rb, store, cfg, 1)
-    assert step.captures == 2
+    assert step.captured.captures == 2
     assert torch.equal(rb.losses(), ra.losses())
-    graph_obj = step.graph
+    graph_obj = step.captured.graph
     with torch.no_grad():
         for s in (a, b):
             next(s.model.parameters()).mul_(0.5)
     a, ma = loop.run_epoch(a, eager, store, cfg, 0)
     b, mb = loop.run_epoch(b, step, store, cfg, 0)
-    assert step.graph is graph_obj and step.captures == 2
+    assert step.captured.graph is graph_obj and step.captured.captures == 2
     assert ma.loss == mb.loss
 
 
@@ -367,10 +384,10 @@ def test_graph_step_replays_on_after_the_guard_restore_on_the_card(cuda):
             p.add_(0.5)  # a collapse
     b, restored = guard.observe(1, 1.0, b)
     assert restored
-    graph_obj = step.graph
+    graph_obj = step.captured.graph
     rec = Recorder(step)
     b, _ = loop.run_epoch(b, rec, store, cfg, 1)
-    assert step.graph is graph_obj and step.captures == 1
+    assert step.captured.graph is graph_obj and step.captured.captures == 1
 
     ref = loop.init_train_state(cfg, cuda, seed=3)
     ref.model.load_state_dict(best)
