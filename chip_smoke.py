@@ -67,7 +67,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                .rnvb) without and with --decode_int8, PATH A (1 masked
                finetune epoch), QAT (1 epoch); then decode_main --decode_int8
                serves the .rnvb: 2 K1 + 2 K2 launches per batch (both K2 on
-               the wgmma route), frames vs the plain path, fps of the int8,
+               the wgmma route, block 2's K1 writing int8), frames vs the
+               plain path, fps of the int8,
                bf16 and plain paths; the int8 ``[serve-graph]`` lines (as
                phase 4's, the recapture after its packed scale changed);
                ``[eval-graph]`` lines (as phase 6's) on the served bf16
@@ -366,9 +367,8 @@ def old_kernel_run(route: str, x: torch.Tensor, p, out: torch.Tensor, z=None):
     entry = lib.repnerv_fused_conv_ps_act if z is None else lib.repnerv_train_stage_fwd
     args = [dk.ROUTES.index(route), ptr(x.data_ptr()), ptr(p.w.data_ptr()), ptr(None),
             ptr(p.b.data_ptr()), ptr(p.head_w.data_ptr() if p.c_final else None),
-            ptr(p.head_b.data_ptr() if p.c_final else None), ptr(out.data_ptr())]
-    if z is not None:
-        args.append(ptr(z.data_ptr()))
+            ptr(p.head_b.data_ptr() if p.c_final else None), ptr(out.data_ptr()),
+            ptr(z.data_ptr() if z is not None else None)]  # z, or the decode's sx
     args += [bsz, h, w, cin, p.c, p.stride, dk.ACT_CODES["swish"], p.c_final, 0]
 
     def run():
@@ -1121,6 +1121,7 @@ def launch_counts() -> dict:
 
 def reset_counts() -> None:
     dk.LAUNCHES = k8.LAUNCHES = tt.FWD_LAUNCHES = tt.BWD_LAUNCHES = sb.LAUNCHES = 0
+    dk.INT8_OUT_LAUNCHES = 0
     rfk.FWD_LAUNCHES = rfk.VJP_LAUNCHES = 0
     for routes in (dk.ROUTE_LAUNCHES, tt.FWD_ROUTE_LAUNCHES, k8.ROUTE_LAUNCHES):
         for r in routes:
@@ -2021,11 +2022,14 @@ def phase_compress(tmp: str) -> dict:
                               "--decode_int8"])
     counts = launch_counts()  # ... and ends here
     k2_routes = dict(k8.ROUTE_LAUNCHES)
+    int8_out = dk.INT8_OUT_LAUNCHES
     per = 2 * n_batches * (1 + DECODE_REPS)
     log(f"[compress] decode_main --decode_int8 -> {serve}; launches {counts} (expect "
-        f"{per} K1 and {per} K2: 2 + 2 per batch), K2 by route {k2_routes} (expect all wgmma)")
-    if counts["K1"] != per or counts["K2"] != per:
-        raise AssertionError(f"int8 serving launched {counts}, expected {per} K1 and {per} K2")
+        f"{per} K1 and {per} K2: 2 + 2 per batch), K2 by route {k2_routes} (expect all wgmma), "
+        f"K1 writing int8 {int8_out} (expect {per // 2}: block 2's)")
+    if counts["K1"] != per or counts["K2"] != per or int8_out != per // 2:
+        raise AssertionError(f"int8 serving launched {counts}, {int8_out} K1 writing int8, "
+                             f"expected {per} K1 ({per // 2} writing int8) and {per} K2")
     if k2_routes != {"wmma": 0, "wgmma": per}:
         raise AssertionError(f"int8 serving: K2 launches by route {k2_routes}")
 
@@ -2065,7 +2069,8 @@ def phase_compress(tmp: str) -> dict:
         f"path {serve['fps']:.2f}, {base.cfg.compute_dtype} K1 path {bf16_fps:.2f}, int8 plain "
         f"path {plain_fps:.2f}")
     results["serve_int8"] = {
-        "launches": counts, "k2_route_launches": k2_routes, "fps": serve["fps"],
+        "launches": counts, "k2_route_launches": k2_routes, "k1_int8_out": int8_out,
+        "fps": serve["fps"],
         "bf16_fps": bf16_fps, "plain_fps": plain_fps,
         "frames_max_abs_err": err, "frames_mean_abs_err": mean_err,
         "compute_dtype": base.cfg.compute_dtype,

@@ -31,9 +31,10 @@ f32 and is quantized there (``np.round``, half to even), so the codes, the
 report and the ``.rnvb`` bytes equal the JAX package's; QAT's fake
 quantizer rounds half to even too (``torch.round``), in f32, with the
 numpy expression's ``scale + 1e-19``.  The int8 decode's own points (a
-division by the input scale in ``quantize_act_int8``, a multiplication by
-``1/out_scale`` in the stage, no FMA in its epilogue) are in
-``kernels/decode_int8.py``.
+division by the input scale in ``quantize_act_int8``, or in K1's epilogue
+where the block before the first int8 block runs K1's wgmma route on the
+card, with the same rounding; a multiplication by ``1/out_scale`` in the
+stage, no FMA in its epilogue) are in ``kernels/decode_int8.py``.
 
 Every stage leaves the caller's model alone: ``compress`` works on a copy.
 """

@@ -454,16 +454,18 @@ cudaError_t launch_tc_vec(const void* x, const void* w, const float* b, const fl
 }
 
 // z == nullptr: decode (no pre-activation store); else the training forward.
+// sx != nullptr: the int8 output of route 2 (the others refuse it).
 // The caller names the route (kernels/decode.py::stage_route); a route that
 // cannot take the shape is an error, never another kernel.
 int launch_stage(int route, const void* x, const void* w, const void* wt, const float* b,
-                 const float* head_w, const float* head_b, void* out, void* z, int B,
-                 int H, int W, int Cin, int C, int s, int act, int c_final,
+                 const float* head_w, const float* head_b, void* out, void* z, const float* sx,
+                 int B, int H, int W, int Cin, int C, int s, int act, int c_final,
                  int sigmoid_squash, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 2)
-    return repnerv::launch_stage_wgmma(x, wt, b, head_w, head_b, out, z, B, H, W, Cin, C, s, act,
-                                       c_final, sigmoid_squash, st);
+    return repnerv::launch_stage_wgmma(x, wt, b, head_w, head_b, out, z, sx, B, H, W, Cin, C, s,
+                                       act, c_final, sigmoid_squash, st);
+  if (sx != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 3) {
     if (wt == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     // wt holds the high parts [Cout, 9*Cin], then the low parts
@@ -493,13 +495,16 @@ int launch_stage(int route, const void* x, const void* w, const void* wt, const 
 // [Cout, 9*Cin] of route 2, or that copy's two TF32 parts [2, Cout, 9*Cin] of
 // route 3; the one a route does not read may be null.
 // c_final = 0: no head, out in the compute dtype; c_final > 0: fused head, out
-// float32.  Returns the cudaError_t of the launch.
+// float32.  sx (device, one f32) != nullptr, route 2 without a head only: out
+// is int8, the next int8 block's input quantised with *sx.  Returns the
+// cudaError_t of the launch.
 extern "C" int repnerv_fused_conv_ps_act(int route, const void* x, const void* w,
                                          const void* wt, const float* b,
                                          const float* head_w, const float* head_b, void* out,
-                                         int B, int H, int W, int Cin, int C, int s, int act,
-                                         int c_final, int sigmoid_squash, void* stream) {
-  return launch_stage(route, x, w, wt, b, head_w, head_b, out, nullptr, B, H, W, Cin, C, s,
+                                         const float* sx, int B, int H, int W, int Cin, int C,
+                                         int s, int act, int c_final, int sigmoid_squash,
+                                         void* stream) {
+  return launch_stage(route, x, w, wt, b, head_w, head_b, out, nullptr, sx, B, H, W, Cin, C, s,
                       act, c_final, sigmoid_squash, stream);
 }
 
@@ -511,6 +516,6 @@ extern "C" int repnerv_train_stage_fwd(int route, const void* x, const void* w,
                                        int W, int Cin, int C, int s, int act, int c_final,
                                        int sigmoid_squash, void* stream) {
   if (z == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_stage(route, x, w, wt, b, head_w, head_b, out, z, B, H, W, Cin, C, s, act,
-                      c_final, sigmoid_squash, stream);
+  return launch_stage(route, x, w, wt, b, head_w, head_b, out, z, nullptr, B, H, W, Cin, C, s,
+                      act, c_final, sigmoid_squash, stream);
 }

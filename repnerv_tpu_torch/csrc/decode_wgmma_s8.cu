@@ -59,7 +59,8 @@ struct S8Policy {
 #else
   static constexpr bool FAST_SWISH = true;
 #endif
-  static constexpr bool DEQUANT = true, HAS_Z = false, PACK_Z = false;
+  static constexpr bool DEQUANT = true, INT8_OUT = true, HAS_Z = false, PACK_Z = false,
+                        HAS_HEAD = true;
   static constexpr CUtensorMapDataType DATA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   static constexpr CUtensorMapSwizzle SWIZZLE = CU_TENSOR_MAP_SWIZZLE_128B;
 
@@ -81,6 +82,9 @@ struct S8Policy {
   static __device__ __forceinline__ void retire(Regs<N>&) {}
   template <int N>
   static __device__ __forceinline__ void start_item(Regs<N>&) {}
+  static __device__ __forceinline__ uint32_t quant_byte(float y, float inv_out) {
+    return requant_byte(y, inv_out);
+  }
 };
 
 }  // namespace

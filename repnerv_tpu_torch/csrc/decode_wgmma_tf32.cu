@@ -70,7 +70,8 @@ struct Tf32x3Policy {
     float t[2][N / 2];  // a slot's sums out of the tensor cores, by the step's parity
     uint32_t a[2][16];  // a slot's A words as TF32 numbers: [parity][8 * k8 + 4 * (lo) + i]
   };
-  static constexpr bool FAST_SWISH = false, DEQUANT = false, HAS_Z = true, PACK_Z = false;
+  static constexpr bool FAST_SWISH = false, DEQUANT = false, INT8_OUT = false, HAS_Z = true,
+                        PACK_Z = false, HAS_HEAD = true;
   static constexpr CUtensorMapDataType DATA_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   static constexpr CUtensorMapSwizzle SWIZZLE = CU_TENSOR_MAP_SWIZZLE_64B;
 

@@ -47,10 +47,11 @@ inline dim3 grid_for(Stage& st, int bm, int bn) {
 
 // The wgmma + TMA stage kernels, one source per operand type; each returns the
 // cudaError_t and refuses (cudaErrorInvalidValue) a shape it does not take.
-// bf16 (decode_wgmma.cu): wt the K-major weights [s*s*C, 9*Cin]
+// bf16 (decode_wgmma.cu): wt the K-major weights [s*s*C, 9*Cin]; sx != null:
+// out is the next int8 block's input, quantised with *sx
 int launch_stage_wgmma(const void* x, const void* wt, const float* b, const float* head_w,
-                       const float* head_b, void* out, void* z, int B, int H, int W, int Cin,
-                       int C, int s, int act, int c_final, int sigmoid_squash,
+                       const float* head_b, void* out, void* z, const float* sx, int B, int H,
+                       int W, int Cin, int C, int s, int act, int c_final, int sigmoid_squash,
                        cudaStream_t stream);
 // f32 as three TF32 products (decode_wgmma_tf32.cu): wt split into hi and lo
 int launch_stage_wgmma_tf32(const void* x, const void* wt_hi, const void* wt_lo, const float* b,

@@ -33,14 +33,14 @@
 //   * The epilogue runs from the wgmma register layout, in three passes over
 //     the accumulators: dequantization (int8) and bias, the activation (chosen
 //     once per work item, its formula compiled into a straight run over the
-//     registers), then the shuffled store or the head, whose C -> c_final
-//     product is reduced over the four lanes that share a row with two
-//     shuffles.  No trip through shared memory.
+//     registers), then the shuffled store (of Out, or of int8 words) or the
+//     head, whose C -> c_final product is reduced over the four lanes that
+//     share a row with two shuffles.  No trip through shared memory.
 // Edge tiles compute on zeros and mask at the store.
 //
 // An operand policy P says:
 //   Acc          float or int: the accumulator registers
-//   Out          the element of the no-head output and of z
+//   Out          the element of z and, unless INT8_OUT, of the no-head output
 //   ELEM_BYTES   of x and the weights
 //   ROW_BYTES    bytes of K per pixel in a ring slot, the swizzle's row (64 or
 //                128); BK = ROW_BYTES / ELEM_BYTES input channels a slot
@@ -55,10 +55,12 @@
 //                and, if not 0, stay under (one slot a tap)
 //   FAST_SWISH   swish through __expf and __fdividef (2^-21 relative) instead
 //                of expf and a division
-//   DEQUANT      int32 sums -> f32 * scale[col] + bias, one rounding each;
-//                no-head output requantized to int8 with *inv_out
+//   DEQUANT      int32 sums -> f32 * scale[col] + bias, one rounding each
+//   INT8_OUT     the no-head output is int8: quant_byte(y, *io.q_out) a value,
+//                stored as 8-byte words after a lane exchange
 //   HAS_Z, PACK_Z  a training forward exists; z waits packed in registers for
 //                the store pass (16-bit) or is stored in the first pass
+//   HAS_HEAD     the fused head exists
 //   DATA_TYPE, SWIZZLE  of the tensor maps
 //   products<N, L, BUF>(regs, slot, wg, t, first, k32s)  everything between a
 //                slot's full barrier and the commit of its wgmma group; BUF is
@@ -67,6 +69,8 @@
 //                f32 adds that step's sums into d; the others do nothing
 //   start_item<N>(regs)  before a work item's first step (f32 clears d; the
 //                others' first product overwrites it)
+//   quant_byte(y, q)  INT8_OUT: the int8 of the activated f32 value y, as the
+//                low byte of an int (int8: requant_byte with q = 1 / out_scale)
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
@@ -127,7 +131,8 @@ struct TileStage {
 
 // What the epilogue reads and writes.
 struct StageIo {
-  const float *bias, *scale, *inv_out;  // scale, inv_out: int8 only
+  const float *bias, *scale;  // scale: DEQUANT only
+  const float* q_out;         // INT8_OUT only: the scalar of P::quant_byte
   const float *head_w, *head_b;
   void *out, *z;
 };
@@ -363,8 +368,8 @@ stage_wgmma(const __grid_constant__ TensorMaps<P::B_PARTS> maps, const StageIo i
   const int q = lane % 4;
   const int tw_mask = (1 << st.tw_log2) - 1;
   const int k32s = (st.Cin + 31) / 32;  // int8: 32-channel products a slot holds
-  float inv_out = 0.f;
-  if (P::DEQUANT && !HEAD) inv_out = *io.inv_out;
+  float q_out = 0.f;
+  if (P::INT8_OUT && !HEAD) q_out = *io.q_out;
   typename P::template Regs<N> regs;
   Acc(&acc)[ACC] = regs.d;
 #pragma unroll
@@ -509,11 +514,11 @@ stage_wgmma(const __grid_constant__ TensorMaps<P::B_PARTS> maps, const StageIo i
             hacc[1] = fmaf(a0, w0v.y, fmaf(a1, w1v.y, hacc[1]));
             hacc[2] = fmaf(a0, w0v.z, fmaf(a1, w1v.z, hacc[2]));
             hacc[3] = fmaf(a0, w0v.w, fmaf(a1, w1v.w, hacc[3]));
-          } else if constexpr (!P::DEQUANT) {
+          } else if constexpr (!P::INT8_OUT) {
             if (store) P::store_pair(out + px * st.C + c, a0, a1);
           }
         }
-        if constexpr (P::DEQUANT && !HEAD) {
+        if constexpr (P::INT8_OUT && !HEAD) {
           // int8 out: a lane holds the channel pair 2q, 2q + 1 of every block
           // of 8 channels.  Over a group of four blocks the four lanes of a
           // row exchange their pairs (two shuffles: lanes 2 apart swap two
@@ -524,14 +529,14 @@ stage_wgmma(const __grid_constant__ TensorMaps<P::B_PARTS> maps, const StageIo i
             uint32_t lo2, hi2;  // this lane's pairs of blocks (4g, 4g + 1) and (4g + 2, 4g + 3)
             {
               const int r = 4 * (sub * (BN / 8) + 4 * g) + 2 * half;
-              lo2 = requant_byte(as_f32(acc[r]), inv_out) |
-                    requant_byte(as_f32(acc[r + 1]), inv_out) << 8 |
-                    requant_byte(as_f32(acc[r + 4]), inv_out) << 16 |
-                    requant_byte(as_f32(acc[r + 5]), inv_out) << 24;
-              hi2 = requant_byte(as_f32(acc[r + 8]), inv_out) |
-                    requant_byte(as_f32(acc[r + 9]), inv_out) << 8 |
-                    requant_byte(as_f32(acc[r + 12]), inv_out) << 16 |
-                    requant_byte(as_f32(acc[r + 13]), inv_out) << 24;
+              lo2 = P::quant_byte(as_f32(acc[r]), q_out) |
+                    P::quant_byte(as_f32(acc[r + 1]), q_out) << 8 |
+                    P::quant_byte(as_f32(acc[r + 4]), q_out) << 16 |
+                    P::quant_byte(as_f32(acc[r + 5]), q_out) << 24;
+              hi2 = P::quant_byte(as_f32(acc[r + 8]), q_out) |
+                    P::quant_byte(as_f32(acc[r + 9]), q_out) << 8 |
+                    P::quant_byte(as_f32(acc[r + 12]), q_out) << 16 |
+                    P::quant_byte(as_f32(acc[r + 13]), q_out) << 24;
             }
             // lanes q and q ^ 2: the lower lane keeps blocks (0, 1) of both, the upper (2, 3)
             const bool upper = q & 2, odd = q & 1;
@@ -638,8 +643,10 @@ cudaError_t launch_for(const Launch<P::B_PARTS>& l) {
       return l.st.c_final > 0 ? launch<P, BN, NSUB, true, true>(l)
                               : launch<P, BN, NSUB, false, true>(l);
   }
-  return l.st.c_final > 0 ? launch<P, BN, NSUB, true, false>(l)
-                          : launch<P, BN, NSUB, false, false>(l);
+  if constexpr (P::HAS_HEAD) {
+    if (l.st.c_final > 0) return launch<P, BN, NSUB, true, false>(l);
+  }
+  return launch<P, BN, NSUB, false, false>(l);
 }
 
 unsigned sm_count() {
@@ -681,8 +688,9 @@ int launch_stage(const void* x, const void* wt, const void* wt2, const StageIo& 
       C <= 0 || C % 8 != 0 || C > 96 || c_final < 0 || c_final > MAX_HEAD || s < 1 || s > 5 ||
       x == nullptr || wt == nullptr || misaligned(x) || misaligned(wt) ||
       (P::B_PARTS == 2 && (wt2 == nullptr || misaligned(wt2))) ||
-      (!P::HAS_Z && io.z != nullptr) ||
-      (P::DEQUANT && (io.scale == nullptr || (c_final == 0 && io.inv_out == nullptr))))
+      (!P::HAS_Z && io.z != nullptr) || (!P::HAS_HEAD && c_final > 0) ||
+      (P::DEQUANT && io.scale == nullptr) ||
+      (P::INT8_OUT && c_final == 0 && io.q_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Launch<P::B_PARTS> l{};
   l.io = io, l.stream = stream;
@@ -725,7 +733,8 @@ int launch_stage(const void* x, const void* wt, const void* wt2, const StageIo& 
 #ifdef REPNERV_PROBE
 // C entry for kernels/probe_wgmma.py, which builds one of the three sources
 // alone: the same signature for every type (wt2, scale, inv_out and z null
-// where the type has none).  REPNERV_PROBE_LAUNCH is the source's launcher.
+// where the type has none; inv_out goes to io.q_out).  Each source defines it
+// with its policy.
 #define REPNERV_PROBE_ENTRY(POLICY)                                                             \
   extern "C" int repnerv_probe_stage(const void* x, const void* wt, const void* wt2,            \
                                      const float* b, const float* scale, const float* inv_out,  \

@@ -107,10 +107,10 @@ def load_library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # route, x, w, wt, b, head_w, head_b, out, B, H, W, Cin, C, s, act,
-            # c_final, sigmoid_squash, stream
-            lib.repnerv_fused_conv_ps_act.argtypes = [i, *[p] * 7, *[i] * 9, p]
-            # ... the same with z after out
+            # route, x, w, wt, b, head_w, head_b, out, sx, B, H, W, Cin, C, s,
+            # act, c_final, sigmoid_squash, stream
+            lib.repnerv_fused_conv_ps_act.argtypes = [i, *[p] * 8, *[i] * 9, p]
+            # ... the same with z in place of sx
             lib.repnerv_train_stage_fwd.argtypes = [i, *[p] * 8, *[i] * 9, p]
             # route, x_q, w_q, wt_q, scale, bias, inv_out, head_w, head_b, out,
             # B, H, W, Cin, C, s, act, c_final, sigmoid_squash, stream

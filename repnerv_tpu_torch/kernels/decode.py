@@ -13,6 +13,12 @@ TF32 tensor-core products, see ``split_tf32``).  The other shapes run
 it runs the plain PyTorch version, ``decode_stage_reference``, which the tests
 also hold the kernel and the JAX kernel against.
 
+Where the next block is served in int8, ``decode_stage(..., out_scale=sx)``
+returns that block's input, ``quantize_act_int8(decode_stage(x, p), sx)`` to
+the bit: on the wgmma route without a head the kernel's epilogue quantises
+(``csrc/decode_wgmma.cu``), so the bf16 output is never stored; on the CPU the
+plain version is followed by the plain quantiser.
+
 The weights go into the kernel's layout once (``pack_weights``): an
 implicit-GEMM operand [9*Cin, Cout] in the compute dtype whose columns are
 in shuffle-major order, so one sub-pixel's C channels are contiguous and
@@ -41,6 +47,8 @@ LAUNCHES = 0
 # ... and the same launches by the route they took
 ROUTES = ("fma", "wmma", "wgmma", "wgmma_tf32x3")  # the index is the code csrc/decode.cu takes
 ROUTE_LAUNCHES: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+# ... and of those, the launches whose epilogue quantised the output to int8
+INT8_OUT_LAUNCHES = 0
 # what the wgmma kernels hold in registers and shared memory
 _WGMMA_MAX_C = 96
 _WGMMA_MAX_HEAD = 4
@@ -254,24 +262,43 @@ def check_stage_args(
 
 
 def decode_stage(
-    x: torch.Tensor, p: PackedStage, act: str = "swish", out_squash: str = "tanh"
+    x: torch.Tensor,
+    p: PackedStage,
+    act: str = "swish",
+    out_squash: str = "tanh",
+    out_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the kernel on a CUDA tensor; run the plain version on a CPU one."""
-    global LAUNCHES
+    """Launch the kernel on a CUDA tensor; run the plain version on a CPU one.
+    ``out_scale`` (the next int8 block's input scale, one f32 on x's device;
+    the wgmma route without a head only): the int8 output
+    ``quantize_act_int8(out, out_scale)``."""
+    global LAUNCHES, INT8_OUT_LAUNCHES
+    if out_scale is not None and (p.route != "wgmma" or p.c_final):
+        raise ValueError(f"decode_stage: an int8 output needs the wgmma route without a head, "
+                         f"not {p.route} with head width {p.c_final}")
     if x.device.type == "cpu":
-        return decode_stage_reference(x, p, act, out_squash)
+        out = decode_stage_reference(x, p, act, out_squash)
+        if out_scale is None:
+            return out
+        from .decode_int8 import quantize_act_int8  # decode_int8 imports this module
+
+        return quantize_act_int8(out, out_scale)
     if x.device.type != "cuda":
         raise ValueError(f"decode_stage runs on cuda or cpu tensors, not {x.device}")
     bsz, h, w, _ = x.shape
     c_final = check_stage_args("decode_stage", x, p, act, out_squash)
-    out_dtype = torch.float32 if c_final else x.dtype
+    if out_scale is not None and (out_scale.device != x.device
+                                  or out_scale.dtype != torch.float32 or out_scale.numel() != 1):
+        raise ValueError("decode_stage: out_scale must be one f32 on x's device")
+    out_dtype = torch.float32 if c_final else torch.int8 if out_scale is not None else x.dtype
     s = p.stride
     out = torch.empty(bsz, h * s, w * s, c_final or p.c, device=x.device, dtype=out_dtype)
     if out.numel() == 0:
         return out
-    route = launch_stage_kernel(x, p, act, out_squash, out)
+    route = launch_stage_kernel(x, p, act, out_squash, out, sx=out_scale)
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
+    INT8_OUT_LAUNCHES += out_scale is not None
     return out
 
 
@@ -282,10 +309,12 @@ def launch_stage_kernel(
     out_squash: str,
     out: torch.Tensor,
     z: Optional[torch.Tensor] = None,
+    sx: Optional[torch.Tensor] = None,
 ) -> str:
     """Launch the stage kernel that ``p.route`` names on checked CUDA inputs:
-    the decode stage, or with ``z`` the training forward, which also stores
-    the pre-activation there.  A refused launch raises.  Returns the route."""
+    the decode stage (with ``sx``, its int8 output quantised by it), or with
+    ``z`` the training forward, which also stores the pre-activation there.
+    A refused launch raises.  Returns the route."""
     bsz, h, w, cin = x.shape
     c_final = p.c_final
     route = p.route
@@ -305,6 +334,7 @@ def launch_stage_kernel(
     ]
     if z is None:
         entry = lib.repnerv_fused_conv_ps_act
+        pointers.append(ptr(sx.data_ptr() if sx is not None else None))
     else:
         entry = lib.repnerv_train_stage_fwd
         pointers.append(ptr(z.data_ptr()))

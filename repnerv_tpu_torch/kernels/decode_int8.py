@@ -20,7 +20,13 @@ on:
   ``w_q = clip(round(w / sw), -127, 127)`` (``quantize_weight_int8``);
 * activations, one static scale per stage from a calibration decode
   (``models/generator.calibrate_int8``): ``x_q = clip(round(f32(x) / sx))``
-  -- a *division* by ``sx`` after a cast to f32 (``quantize_act_int8``);
+  -- a *division* by ``sx`` after a cast to f32 (``quantize_act_int8``).
+  The first int8 block's input is quantised by this pass, or, where the
+  block before it runs K1 on its wgmma route without a head on the card, by
+  K1's own epilogue (``decode.decode_stage(out_scale=sx)``) with the same
+  cast and rounding points: K1's f32 value rounded to the bf16 it would have
+  stored, widened, divided by ``sx`` with IEEE rounding (torch's division by
+  a tensor on the card), rounded half to even, clipped;
 * the stage: the int8 x int8 products summed exactly in int32, then
   ``f32(acc) * scale`` and ``+ bias`` as two f32 operations with one
   rounding each (no FMA), ``scale = sx * sw``; the activation; then either

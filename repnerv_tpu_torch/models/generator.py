@@ -17,7 +17,12 @@ with the JAX gate (norm none, a deploy block, an entry for the block in the
 module's ``int8`` tables; no pixel-count gate), a block runs the int8 stage
 (``kernels/decode_int8.py``): a non-int8 input is quantized with the block's
 ``in_scale``, an int8 input passes through, and the last block fuses the
-head and returns f32.  ``calibrate_int8`` returns a copy of a deploy
+head and returns f32.  Where the block before the first int8 block runs K1
+on its wgmma route without a head, on a CUDA tensor, K1's epilogue writes
+that block's int8 input itself (``int8_out_scale``); elsewhere (the WMMA
+route, the library conv below ``KERNEL_MIN_PIXELS``, the CPU) a separate
+pass quantises it, in the span ``int8.quantize_act``.  The bytes are the
+same.  ``calibrate_int8`` returns a copy of a deploy
 generator with the tables; each entry holds its stage packed in the
 kernel's layout when it is made (``int8_entry``).  The tables live outside
 ``state_dict()``, so checkpoints and ``load_state(strict=True)`` do not
@@ -86,6 +91,19 @@ class Int8Entry(NamedTuple):
     packed: decode_int8.PackedInt8Stage
 
 
+def int8_out_scale(
+    p: decode_kernel.PackedStage, device: torch.device, nxt: Optional[Int8Entry]
+) -> Optional[torch.Tensor]:
+    """The scale with which K1, running stage ``p`` on ``device``, writes the
+    next block's int8 input (``decode_stage(out_scale=...)``): that block's
+    ``in_scale`` where the next block ``nxt`` is served in int8 and the stage
+    takes the wgmma route without a head on a CUDA tensor; else None, and a
+    separate pass quantises."""
+    if nxt is None or p.route != "wgmma" or p.c_final or device.type != "cuda":
+        return None
+    return nxt.in_scale
+
+
 def squash_name(cfg: ModelConfig) -> str:
     """The output squash of ``cfg``, by the kernels' name for it."""
     return "sigmoid" if cfg.sigmoid else "tanh"
@@ -150,6 +168,15 @@ class Generator(nn.Module):
         self.to(device)
         self.eval()
 
+    def _int8_stage(self, li: int) -> Optional[Int8Entry]:
+        """Block ``li``'s int8 table where the block is served in int8 (the
+        JAX gate: eval mode, ``decode_int8``, norm none, a deploy block)."""
+        cfg = self.cfg
+        if (li >= len(self.layers) or not cfg.decode_int8 or self.training
+                or cfg.norm != "none" or self.layers[li].rbr_reparam is None):
+            return None
+        return self.int8.get(str(li))
+
     def _packed_stage(
         self, li: int, head: Optional[ConvWeights], dtype: torch.dtype
     ) -> decode_kernel.PackedStage:
@@ -201,14 +228,7 @@ class Generator(nn.Module):
             for _ in range(cfg.num_blocks):
                 blk = self.layers[li]
                 fuse_head = head if li == len(self.layers) - 1 else None
-                q = (
-                    self.int8.get(str(li))
-                    if cfg.decode_int8
-                    and not train
-                    and cfg.norm == "none"
-                    and blk.rbr_reparam is not None
-                    else None
-                )
+                q = self._int8_stage(li)
                 if q is not None:
                     if x.dtype != torch.int8:
                         with span("int8.quantize_act"):
@@ -231,8 +251,9 @@ class Generator(nn.Module):
                 if use_decode:
                     with span(self.stage_spans[li]):
                         p = self._packed_stage(li, fuse_head, dtype)
+                        sx = int8_out_scale(p, x.device, self._int8_stage(li + 1))
                         x = decode_kernel.decode_stage(x.to(dtype).contiguous(), p, cfg.act,
-                                                       squash)
+                                                       squash, out_scale=sx)
                 elif use_ptrain(cfg, x, train):
                     with span(self.stage_spans[li]):
                         with span("reparam.fuse"):

@@ -305,13 +305,16 @@ def _k12(counts) -> tuple:
             counts["repnerv_tpu_torch.kernels.decode_int8", "LAUNCHES"])
 
 
+INT8_OUT = ("repnerv_tpu_torch.kernels.decode", "INT8_OUT_LAUNCHES")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
 def test_graph_decode_equals_eager_decode_on_the_card(cuda, kind):
     """Graph frames and checksums equal ``decode_video``'s to the bit, call
     after call of one decode function (one capture); one eager batch and
     then one replay a batch, each counted as the eager batch's launches (2 K1,
-    or 2 K2 under int8)."""
+    or 2 K2 under int8; no K1 writes int8: block 1 runs the library conv)."""
     gen = _card_model(kind, cuda)
     cfg = TrainConfig(model=gen.cfg)
     t = CARD_T.to(cuda)
@@ -326,7 +329,8 @@ def test_graph_decode_equals_eager_decode_on_the_card(cuda, kind):
     for _ in range(2):
         before = launches.snapshot()
         got = run(gen, t)
-        assert _k12(launches.since(before)) == (3 * per_batch[0], 3 * per_batch[1])
+        counts = launches.since(before)
+        assert _k12(counts) == (3 * per_batch[0], 3 * per_batch[1]) and counts[INT8_OUT] == 0
         assert torch.equal(got, ref)
         assert torch.equal(sums(gen, t), ref_sums)
     assert run.captured.captures == sums.captured.captures == 1
@@ -336,6 +340,43 @@ def test_graph_decode_equals_eager_decode_on_the_card(cuda, kind):
     one = loop.make_decode_fn(cfg)
     for i in range(3):
         assert torch.equal(one(gen, t[i]), ref[i])
+
+
+@pytest.mark.gpu
+def test_graph_int8_decode_quantises_in_k1_on_the_card(cuda, tmp_path):
+    """With the block before the first int8 block on K1's wgmma route, a
+    replayed batch runs 1 K1 that writes int8 (``INT8_OUT_LAUNCHES`` 1 a
+    batch) and 1 K2, and charges no op to ``int8.quantize_act``; its frames
+    equal, to the bit, the eager decode written out with the plain pass
+    (``decode_stage``, then ``quantize_act_int8``)."""
+    from repnerv_tpu_torch.utils.profiling import trace
+
+    from test_torch_decode_int8 import decode_with_the_plain_pass
+
+    cfg = dataclasses.replace(CARD, compute_dtype="bfloat16", decode_int8=True,
+                              int8_from_block=-1)
+    gen = generator_to_deploy(Generator(cfg, seed=8, device=cuda)).eval()
+    calib = torch.arange(4, dtype=torch.float32, device=cuda) / 4
+    gen = calibrate_int8(gen, positional_encoding(calib, cfg.embed))
+    assert set(gen.int8) == {"3"}
+    t = CARD_T.to(cuda)
+    with torch.no_grad():
+        want = torch.stack([decode_with_the_plain_pass(gen, positional_encoding(row, cfg.embed))
+                            for row in t])
+    run = loop.make_video_decode_fn(TrainConfig(model=gen.cfg))
+    first = run(gen, t)  # the eager batch, the capture, two replays
+    assert run.captured.captures == 1
+    assert _k12(run.captured.counts) == (1, 1) and run.captured.counts[INT8_OUT] == 1
+    assert not [path for g in run.captured.labels.graphs for path, _, _ in g.ranges
+                if "int8.quantize_act" in path]
+    before = launches.snapshot()
+    with trace(str(tmp_path), cuda) as rec:
+        got = run(gen, t)
+    counts = launches.since(before)
+    assert _k12(counts) == (3, 3) and counts[INT8_OUT] == 3
+    assert rec.unattributed == []
+    assert not [p for p, st in rec.spans.items() if "int8.quantize_act" in p and st.ops]
+    assert torch.equal(first, want) and torch.equal(got, want)
 
 
 @pytest.mark.gpu

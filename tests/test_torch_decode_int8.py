@@ -386,6 +386,147 @@ def test_decode_main_int8_matches_jax(tmp_path, monkeypatch):
     assert diff.max() <= 3 and (diff > 1).mean() < 1e-3
 
 
+# K1 writing the first int8 block's input (decode_stage's out_scale)
+# ---------------------------------------------------------------------------
+
+
+def _k1_stage(Cin=16, C=8, s=2, dtype=torch.bfloat16, head=False, device="cpu", gain=1.0,
+              seed=0):
+    """bf16 K1 inputs and a packed stage (HWIO weights of std gain / sqrt(9 Cin))."""
+    from repnerv_tpu_torch.kernels import decode as dk
+
+    rng = np.random.default_rng(seed)
+    cout = C * s * s
+    w = rng.standard_normal((3, 3, Cin, cout)) * gain * (9 * Cin) ** -0.5
+    b = rng.standard_normal(cout) * 0.1
+    hw = rng.standard_normal((1, 1, C, 3)) * 0.3 if head else None
+    dev = lambda a: None if a is None else torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    return dk.pack_weights(dev(w), dev(b), s, dtype, head_w=dev(hw),
+                           head_b=torch.zeros(3, device=device) if head else None)
+
+
+def test_k1_int8_out_on_the_cpu_is_the_plain_pass():
+    """On a CPU tensor ``decode_stage(out_scale=sx)`` is the plain stage and
+    then ``quantize_act_int8``, to the bit, and counts no launch."""
+    from repnerv_tpu_torch.kernels import decode as dk
+
+    p = _k1_stage()
+    assert p.route == "wgmma"
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 5, 7, 16))
+                         .astype(np.float32)).bfloat16()
+    sx = torch.tensor(0.0123)
+    before = (dk.LAUNCHES, dk.INT8_OUT_LAUNCHES)
+    got = dk.decode_stage(x, p, "swish", out_scale=sx)
+    want = k8.quantize_act_int8(dk.decode_stage_reference(x, p, "swish"), sx)
+    assert got.dtype == torch.int8 and tuple(got.shape) == (2, 10, 14, 8)
+    assert torch.equal(got, want) and bool((got != 0).any())
+    assert (dk.LAUNCHES, dk.INT8_OUT_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("case", ["wmma", "f32", "head"])
+def test_k1_int8_out_refuses_other_routes_and_a_head(case):
+    """Only the bf16 wgmma route without a head quantises its output:
+    anything else raises, on the CPU as on the card."""
+    from repnerv_tpu_torch.kernels import decode as dk
+
+    p = {"wmma": lambda: _k1_stage(Cin=12), "f32": lambda: _k1_stage(dtype=torch.float32),
+         "head": lambda: _k1_stage(head=True)}[case]()
+    assert (p.route, p.c_final) != ("wgmma", 0)
+    x = torch.zeros(1, 4, 4, p.cin, dtype=p.w.dtype)
+    with pytest.raises(ValueError, match="wgmma route without a head"):
+        dk.decode_stage(x, p, out_scale=torch.tensor(0.01))
+
+
+def _entry(in_scale=0.02):
+    """An int8 table of which only ``in_scale`` is read."""
+    from repnerv_tpu_torch.models.generator import Int8Entry
+
+    return Int8Entry(None, None, torch.tensor(in_scale), None, None, None)
+
+
+@pytest.mark.parametrize("case,fused", [
+    ("wgmma cuda next int8", True),
+    ("wgmma cpu", False),
+    ("wmma", False),
+    ("f32", False),
+    ("head", False),
+    ("next not int8", False),
+])
+def test_k1_writes_int8_only_where_the_caller_can(case, fused):
+    """``int8_out_scale``: the next block's ``in_scale`` on a CUDA tensor whose
+    stage takes the wgmma route without a head and whose next block is
+    served in int8; None otherwise (no card needed: the device is only read)."""
+    from repnerv_tpu_torch.models.generator import int8_out_scale
+
+    p = {"wmma": lambda: _k1_stage(Cin=12), "f32": lambda: _k1_stage(dtype=torch.float32),
+         "head": lambda: _k1_stage(head=True)}.get(case, _k1_stage)()
+    dev = torch.device("cpu" if case == "wgmma cpu" else "cuda")
+    nxt = None if case == "next not int8" else _entry()
+    got = int8_out_scale(p, dev, nxt)
+    assert (got is nxt.in_scale) if fused else got is None
+
+
+def _int8_after_k1_cfg():
+    """A bf16 deploy model whose block 1 (32x32 input) takes K1 and whose
+    block 2, the last, is served in int8."""
+    from repnerv_tpu_torch.config import ModelConfig
+
+    return ModelConfig(embed="1.25_4", stem_dim_num="16_1", fc_hw_dim="16_16_8",
+                       strides=(2, 2, 2), lower_width=8, branch_type="ERB",
+                       compute_dtype="bfloat16", decode_int8=True, int8_from_block=-1)
+
+
+def decode_with_the_plain_pass(gen, emb):
+    """The int8 decode of ``gen`` (its last block served in int8) written out
+    with the plain pass between K1 and K2: the stem and the small blocks as
+    the generator runs them, ``decode_stage`` for a K1 block,
+    ``quantize_act_int8`` before the first int8 block.  Returns the frames."""
+    from repnerv_tpu_torch.kernels import decode as dk
+    from repnerv_tpu_torch.models.generator import DTYPES, KERNEL_MIN_PIXELS, squash_name
+
+    cfg = gen.cfg
+    dtype = DTYPES[cfg.compute_dtype]
+    h, w, c = cfg.fc_hwd
+    x = gen.stem(emb, dtype=dtype, mixed=False)
+    x = x.reshape(x.shape[0], c, h, w).permute(0, 2, 3, 1).contiguous()
+    for li, blk in enumerate(gen.layers):
+        q = gen.int8.get(str(li))
+        if q is not None:
+            if x.dtype != torch.int8:
+                x = k8.quantize_act_int8(x, q.in_scale)
+            x = k8.decode_stage_int8(x.contiguous(), q.packed, cfg.act, squash_name(cfg))
+        elif x.shape[1] * x.shape[2] >= KERNEL_MIN_PIXELS:
+            x = dk.decode_stage(x.to(dtype).contiguous(), gen._packed_stage(li, None, dtype),
+                                cfg.act, squash_name(cfg))
+        else:
+            x = blk(x, online_fuse=cfg.online_fuse)
+    return x
+
+
+def test_cpu_int8_decode_quantises_in_its_own_span(tmp_path):
+    """On the CPU the block before the first int8 block runs the plain K1 and
+    the plain pass quantises its output inside ``int8.quantize_act``; the
+    frames equal the decode written out with that pass, to the bit."""
+    from repnerv_tpu_torch.kernels import decode as dk
+    from repnerv_tpu_torch.models.embedding import positional_encoding
+    from repnerv_tpu_torch.models.generator import Generator, calibrate_int8, generator_to_deploy
+    from repnerv_tpu_torch.utils.profiling import trace
+
+    cfg = _int8_after_k1_cfg()
+    gen = calibrate_int8(generator_to_deploy(Generator(cfg, seed=2)),
+                         positional_encoding(torch.tensor([0.1, 0.6]), cfg.embed))
+    assert set(gen.int8) == {"2"}
+    emb = positional_encoding(torch.tensor([0.3, 0.8]), cfg.embed)
+    before = (dk.LAUNCHES, dk.INT8_OUT_LAUNCHES, k8.LAUNCHES)
+    with torch.no_grad(), trace(str(tmp_path), "cpu") as rec:
+        out = gen(emb)[0]
+    assert (dk.LAUNCHES, dk.INT8_OUT_LAUNCHES, k8.LAUNCHES) == before
+    assert [p for p in rec.spans if p.split("/")[-1] == "int8.quantize_act"]
+    assert tuple(out.shape) == (2, 128, 128, 3)
+    with torch.no_grad():
+        assert torch.equal(out, decode_with_the_plain_pass(gen, emb))
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -544,3 +685,107 @@ def test_cuda_wgmma_route_refuses_what_it_cannot_take(cuda):
     torch.cuda.synchronize()
     assert err != 0
     assert not bool(out.any())  # nothing ran
+
+
+@pytest.mark.gpu
+def test_cuda_torch_divides_by_a_scale_tensor_with_ieee_rounding(cuda):
+    """What K1's int8 epilogue matches: ``x / sx`` with ``sx`` a scalar tensor
+    on the card is the correctly rounded f32 quotient (a division, not a
+    multiplication by the reciprocal, which differs on some values)."""
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy((rng.standard_normal(1 << 20) * 4).astype(np.float32)).to(cuda)
+    v = v.bfloat16().float()  # what the plain pass divides: widened bf16 values
+    for scale in (0.0123, 0.3, 1.7e-3):
+        sx = torch.tensor(scale, dtype=torch.float32, device=cuda)
+        exact = (v.double() / sx.double()).float()  # 53 bits >= 2 * 24 + 2: no double rounding
+        assert torch.equal(v / sx, exact)
+        assert not torch.equal(v * (1.0 / sx), exact)
+
+
+# K1 writing the next block's int8 input: B, H, W, Cin, C, s, weight gain, sx
+# (None: an abs-max scale of the plain output, as calibrate_int8 makes one)
+K1_INT8_CASES = [
+    (8, 90, 160, 96, 96, 2, 1.0, None),  # the flagship's block 2
+    (2, 37, 70, 32, 32, 2, 1.0, None),  # ragged tiles, the 32-wide tile
+    (1, 23, 45, 48, 64, 3, 1.0, None),  # ragged tiles, the 64-wide tile, 9 sub-pixels
+    (2, 16, 32, 96, 96, 2, 4.0, 2.0**-6),  # .5 ties (sx a power of two) and +-127 clamps
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Cin,C,s,gain,sx", K1_INT8_CASES)
+def test_cuda_k1_int8_out_is_the_plain_pass_to_the_bit(cuda, B, H, W, Cin, C, s, gain, sx):
+    """K1 with ``out_scale`` equals K1 and then ``quantize_act_int8``, every
+    byte, and counts one launch that quantised."""
+    from repnerv_tpu_torch.kernels import decode as dk
+
+    p = _k1_stage(Cin=Cin, C=C, s=s, device=cuda, gain=gain, seed=B + H)
+    assert p.route == "wgmma"
+    x = torch.from_numpy(np.random.default_rng(H).standard_normal((B, H, W, Cin))
+                         .astype(np.float32)).to(cuda).bfloat16()
+    y = dk.decode_stage(x, p, "swish")
+    scale = torch.tensor(sx if sx is not None else y.float().abs().amax().item() * 0.9 / 127,
+                         dtype=torch.float32, device=cuda)
+    before = (dk.LAUNCHES, dk.INT8_OUT_LAUNCHES)
+    got = dk.decode_stage(x, p, "swish", out_scale=scale)
+    want = k8.quantize_act_int8(y, scale)
+    torch.cuda.synchronize()
+    assert (dk.LAUNCHES, dk.INT8_OUT_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.int8 and got.shape == y.shape
+    assert torch.equal(got, want)
+    q = y.float() / scale
+    assert bool((q.abs() > 127.5).any())  # the clamps are reached
+    if sx is not None:
+        assert int((q - q.floor() == 0.5).sum()) > 1000  # so are exact ties
+
+
+@pytest.mark.gpu
+def test_cuda_k1_int8_out_refused_by_the_wmma_route_and_a_head(cuda):
+    """The wrapper raises on the WMMA route and on a head; the library, handed
+    the scale anyway, returns an error and runs nothing."""
+    import ctypes
+
+    from repnerv_tpu_torch.kernels import decode as dk
+    from repnerv_tpu_torch.kernels.build import load_library
+
+    sx = torch.tensor(0.02, device=cuda)
+    ptr = ctypes.c_void_p
+    for p in (_k1_stage(Cin=12, device=cuda), _k1_stage(head=True, device=cuda)):
+        x = torch.ones(1, 4, 6, p.cin, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="wgmma route without a head"):
+            dk.decode_stage(x, p, out_scale=sx)
+        route = p.route
+        wt = p.w.t().contiguous()
+        out = torch.zeros(1, 8, 12, p.c_final or p.c, device=cuda,
+                          dtype=torch.float32 if p.c_final else torch.int8)
+        err = load_library().repnerv_fused_conv_ps_act(
+            dk.ROUTES.index(route), ptr(x.data_ptr()), ptr(p.w.data_ptr()), ptr(wt.data_ptr()),
+            ptr(p.b.data_ptr()), ptr(p.head_w.data_ptr() if p.c_final else None),
+            ptr(p.head_b.data_ptr() if p.c_final else None), ptr(out.data_ptr()),
+            ptr(sx.data_ptr()), 1, 4, 6, p.cin, p.c, p.stride, dk.ACT_CODES["swish"], p.c_final,
+            0, ptr(torch.cuda.current_stream().cuda_stream),
+        )
+        torch.cuda.synchronize()
+        assert err != 0, route
+        assert not bool(out.any())  # nothing ran
+
+
+def test_the_int8_out_counter_is_registered_and_not_counted_twice():
+    """``decode.INT8_OUT_LAUNCHES`` is in the launch record, so captures and
+    replays count it; ``total`` does not count its launches again."""
+    from repnerv_tpu_torch.kernels import launches
+
+    key = ("repnerv_tpu_torch.kernels.decode", "INT8_OUT_LAUNCHES")
+    before = launches.snapshot()
+    assert key in before
+    one = {k: ({r: 0 for r in v} if isinstance(v, dict) else 0) for k, v in before.items()}
+    one["repnerv_tpu_torch.kernels.decode", "LAUNCHES"] = 1
+    one["repnerv_tpu_torch.kernels.decode", "ROUTE_LAUNCHES"]["wgmma"] = 1
+    one[key] = 1
+    launches.add(one)
+    try:
+        counts = launches.since(before)
+        assert counts[key] == 1 and launches.total(counts) == 1
+    finally:
+        launches.add(one, -1)
+    assert launches.snapshot() == before

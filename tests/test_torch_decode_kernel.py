@@ -420,7 +420,7 @@ def test_cuda_tf32x3_route_refuses_what_it_cannot_take(cuda):
     err = load_library().repnerv_fused_conv_ps_act(
         dk.ROUTES.index("wgmma_tf32x3"), ptr(xin.data_ptr()), ptr(p.w.data_ptr()),
         ptr(wt.data_ptr()), ptr(p.b.data_ptr()), ptr(None), ptr(None), ptr(out.data_ptr()),
-        2, 8, 16, 6, 8, 2, dk.ACT_CODES["swish"], 0, 0,
+        ptr(None), 2, 8, 16, 6, 8, 2, dk.ACT_CODES["swish"], 0, 0,
         ptr(torch.cuda.current_stream().cuda_stream),
     )
     torch.cuda.synchronize()
@@ -446,7 +446,7 @@ def test_cuda_route_that_cannot_take_the_shape_is_refused(cuda):
     ptr = ctypes.c_void_p
     err = load_library().repnerv_fused_conv_ps_act(
         dk.ROUTES.index("wgmma"), ptr(xin.data_ptr()), ptr(p.w.data_ptr()), ptr(wt.data_ptr()),
-        ptr(p.b.data_ptr()), ptr(None), ptr(None), ptr(out.data_ptr()),
+        ptr(p.b.data_ptr()), ptr(None), ptr(None), ptr(out.data_ptr()), ptr(None),
         2, 8, 16, 12, 8, 2, dk.ACT_CODES["swish"], 0, 0,
         ptr(torch.cuda.current_stream().cuda_stream),
     )
