@@ -1,18 +1,23 @@
 """Plain PyTorch reference of the NeRV generator the benchmark runs.
 
 Written from the papers' equations (NeRV, arXiv:2110.13903; Online-RepNeRV,
-arXiv:2511.11071) with the reference implementation's tensor names, in NCHW
-and float32 with TF32 off.  It imports nothing of the program: it takes the
-benchmark's raw inputs (weights drawn from the seed by name, frame times)
-and works out for itself what the program derives from them (the deploy
-fold, the int8 tables).
+arXiv:2511.11071, and the branch blocks it takes: ACNet, arXiv:1908.03930;
+RepVGG, arXiv:2101.03697; DBB, arXiv:2103.13425; ECBSR's Edge-oriented
+Convolution Block, Zhang, Zeng & Zhang, ACM MM 2021) with the reference
+implementation's tensor names, in NCHW and float32 with TF32 off.  It
+imports nothing of the program: it takes the benchmark's raw inputs
+(weights drawn from the seed by name, frame times) and works out for itself
+what the program derives from them (the deploy fold, the int8 tables).
 
     frame index t -> PE(t) = [sin(t b^i pi), cos(t b^i pi)]_{i < levels}
       -> MLP stem (Linear + act per layer) -> view [B, c, h, w]
-      -> per block: conv (NeRV_vanilla: one 3x3; ERB: 3x3 + 3x1 + 1x3
-         + (1x1 -> 3x3 -> 1x1), each branch run as itself) -> PixelShuffle(s)
-         -> act
+      -> per block: conv (the sum of the branch type's branches, each run
+         as itself: ``branches``) -> PixelShuffle(s) -> act
       -> 1x1 head -> (tanh + 1) / 2.
+
+The branch types as Online-RepNeRV's code defines them, which departs from
+the papers in three ways: no branch has a BatchNorm, RepVGG has no identity
+branch, and DBB's average-pool branch starts with a bias-free 1x1 conv.
 
 ``prec`` selects the rounding of every conv's and linear's operands: None
 (f32), "fp8" (e4m3 with one scale a tensor) or, for int8 blocks, "int4".
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +38,16 @@ import torch.nn.functional as F
 Params = Dict[str, torch.Tensor]
 
 FP8_MAX = 448.0  # largest finite float8_e4m3fn
+
+# ECBSR's edge masks, by the name of the edge branch that applies each
+SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
+SOBEL_Y = tuple(zip(*SOBEL_X))
+LAPLACIAN = ((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0))
+EDGES = {"rbr_conv1x1_sbx_branch": SOBEL_X, "rbr_conv1x1_sby_branch": SOBEL_Y,
+         "rbr_conv1x1_lpl_branch": LAPLACIAN}
+# the fan-in whose uniform bound 1/sqrt(fan) is sqrt(3) 1e-3: the standard
+# deviation 1e-3 of an edge branch's ``scale`` and ``bias`` (randn * 1e-3)
+EDGE_FAN = 1.0 / 3e-6
 
 
 @contextlib.contextmanager
@@ -78,7 +93,9 @@ def dims(m: dict) -> dict:
 def param_shapes(m: dict) -> List[Tuple[str, Tuple[int, ...], int]]:
     """(name, shape, fan_in) of every trained tensor, in the reference
     model's ``state_dict`` names.  Only ``single_res`` (one head at the last
-    block) and norm "none" are modelled."""
+    block) and norm "none" are modelled.  An edge branch's ``scale`` and
+    ``bias`` take the fan-in ``EDGE_FAN``: uniform within +-sqrt(3) 1e-3,
+    the standard deviation of the reference's randn * 1e-3."""
     if not m["single_res"] or m["norm"] != "none" or m.get("num_blocks", 1) != 1:
         raise ValueError("the reference models single_res, norm none, one block a stage")
     d = dims(m)
@@ -86,33 +103,71 @@ def param_shapes(m: dict) -> List[Tuple[str, Tuple[int, ...], int]]:
     for i, (a, b) in enumerate(zip(d["stem"][:-1], d["stem"][1:])):
         out += [(f"stem.{2 * i}.weight", (b, a), a), (f"stem.{2 * i}.bias", (b,), a)]
     for i, (cin, new, s) in enumerate(d["blocks"]):
-        cout = new * s * s
-        for name, (kh, kw, ci, co, bias) in branches(m["branch_type"], cin, cout).items():
-            fan = ci * kh * kw
-            out.append((f"layers.{i}.{name}.weight", (co, ci, kh, kw), fan))
-            if bias:
-                out.append((f"layers.{i}.{name}.bias", (co,), fan))
+        for name, br in branches(m["branch_type"], cin, new * s * s).items():
+            pre, fan, co = f"layers.{i}.{name}", br.cin * br.kh * br.kw, br.cout
+            if br.kind == "edge":
+                out += [(f"{pre}.k0", (co, br.cin, 1, 1), fan), (f"{pre}.b0", (co,), fan),
+                        (f"{pre}.scale", (co, 1, 1, 1), EDGE_FAN), (f"{pre}.bias", (co,), EDGE_FAN)]
+                continue
+            out.append((f"{pre}.weight", (co, br.cin, br.kh, br.kw), fan))
+            if br.bias:
+                out.append((f"{pre}.bias", (co,), fan))
     last = len(d["blocks"]) - 1
     c = d["blocks"][-1][1]
     out += [(f"head_layers.{last}.weight", (3, c, 1, 1), c), (f"head_layers.{last}.bias", (3,), c)]
     return out
 
 
-def branches(branch_type: str, cin: int, cout: int) -> Dict[str, tuple]:
-    """A block's branches: name -> (kh, kw, in, out, bias), in the order the
-    branch sum adds them; ERB's 1x1 -> 3x3 -> 1x1 chain is its last three."""
+class Branch(NamedTuple):
+    """One branch of a block, or one conv of a branch that is a chain.
+
+    ``kind``: "conv", a kh x kw conv (with its bias if ``bias``); "chain",
+    one bias-free conv of a chain, which runs on the chain's last output
+    (the block's input for the first), consecutive ones forming one chain;
+    "avg", a bias-free 1x1 conv then AvgPool2d(3, 1, 1) counting the
+    padding; "edge", ECB's SeqConv3x3: a 1x1 conv ``k0`` with bias ``b0``,
+    a one-pixel border filled with ``b0``, then a depthwise 3x3 conv with
+    the weight ``scale`` times ``mask`` and the bias ``bias``."""
+
+    kind: str
+    kh: int
+    kw: int
+    cin: int
+    cout: int
+    bias: bool = False
+    mask: Optional[tuple] = None
+
+
+def branches(branch_type: str, cin: int, cout: int) -> Dict[str, Branch]:
+    """A block's branches by name, in the order the branch sum adds them
+    (a chain where its last conv is)."""
+    def conv(kh, kw, bias=True):
+        return Branch("conv", kh, kw, cin, cout, bias)
+
+    chain = {"rbr_1x1_3x3_branch_1x1": Branch("chain", 1, 1, cin, 2 * cin),
+             "rbr_1x1_3x3_branch_3x3": Branch("chain", 3, 3, 2 * cin, cout)}
     if branch_type == "NeRV_vanilla":
-        return {"branch": (3, 3, cin, cout, True)}
-    if branch_type == "ERB":
-        return {
-            "rbr_3x3_branch": (3, 3, cin, cout, True),
-            "rbr_3x1_branch": (3, 1, cin, cout, True),
-            "rbr_1x3_branch": (1, 3, cin, cout, True),
-            "rbr_1x1_3x3_1x1_branch_1x1_1": (1, 1, cin, 2 * cin, False),
-            "rbr_1x1_3x3_1x1_branch_3x3": (3, 3, 2 * cin, cout, False),
-            "rbr_1x1_3x3_1x1_branch_1x1_2": (1, 1, cout, cout, False),
-        }
-    raise ValueError(f"the reference models NeRV_vanilla and ERB, not {branch_type}")
+        return {"branch": conv(3, 3)}
+    if branch_type in ("ACB", "ERB"):
+        out = {"rbr_3x3_branch": conv(3, 3), "rbr_3x1_branch": conv(3, 1),
+               "rbr_1x3_branch": conv(1, 3)}
+        if branch_type == "ERB":
+            out.update({
+                "rbr_1x1_3x3_1x1_branch_1x1_1": Branch("chain", 1, 1, cin, 2 * cin),
+                "rbr_1x1_3x3_1x1_branch_3x3": Branch("chain", 3, 3, 2 * cin, cout),
+                "rbr_1x1_3x3_1x1_branch_1x1_2": Branch("chain", 1, 1, cout, cout)})
+        return out
+    if branch_type == "RepVGG":
+        return {"rbr_3x3_branch": conv(3, 3), "rbr_1x1_branch": conv(1, 1)}
+    if branch_type == "DBB":
+        return {"rbr_3x3_branch": conv(3, 3), "rbr_1x1_branch": conv(1, 1), **chain,
+                "rbr_1x1_avg_branch_1x1": Branch("avg", 1, 1, cin, cout)}
+    if branch_type == "ECB":
+        return {"rbr_3x3_branch": conv(3, 3), **chain,
+                **{name: Branch("edge", 1, 1, cin, cout, mask=mask)
+                   for name, mask in EDGES.items()}}
+    raise ValueError(f"the reference models NeRV_vanilla, ERB, ACB, RepVGG, DBB and ECB, "
+                     f"not {branch_type}")
 
 
 # ---------------------------------------------------------------------------
@@ -176,19 +231,43 @@ def stem(p: Params, m: dict, t: torch.Tensor, prec: Optional[str] = None) -> tor
 
 
 def block_conv(p: Params, m: dict, i: int, x: torch.Tensor, prec: Optional[str] = None):
-    """Block ``i``'s conv as the sum of its branches, each a conv of its own."""
+    """Block ``i``'s conv as the sum of its branches, each run as itself."""
     cin, new, s = dims(m)["blocks"][i]
     out, chain = None, None
-    for name, (kh, kw, _, _, bias) in branches(m["branch_type"], cin, new * s * s).items():
-        w = rounded(p[f"layers.{i}.{name}.weight"], prec)
-        b = p.get(f"layers.{i}.{name}.bias") if bias else None
-        if name.startswith("rbr_1x1_3x3_1x1"):
-            chain = F.conv2d(rounded(x if chain is None else chain, prec), w, None,
-                             padding=(kh // 2, kw // 2))
+    for name, br in branches(m["branch_type"], cin, new * s * s).items():
+        pre = f"layers.{i}.{name}"
+        if br.kind == "chain":
+            chain = F.conv2d(rounded(x if chain is None else chain, prec),
+                             rounded(p[f"{pre}.weight"], prec), None,
+                             padding=(br.kh // 2, br.kw // 2))
             continue
-        y = F.conv2d(rounded(x, prec), w, b, padding=(kh // 2, kw // 2))
+        if chain is not None:  # the chain ended at the conv before
+            out, chain = out + chain, None
+        if br.kind == "edge":
+            y = edge_branch(p, pre, br.mask, x, prec)
+        elif br.kind == "avg":
+            y = F.avg_pool2d(F.conv2d(rounded(x, prec), rounded(p[f"{pre}.weight"], prec)),
+                             3, stride=1, padding=1, count_include_pad=True)
+        else:
+            y = F.conv2d(rounded(x, prec), rounded(p[f"{pre}.weight"], prec),
+                         p.get(f"{pre}.bias") if br.bias else None,
+                         padding=(br.kh // 2, br.kw // 2))
         out = y if out is None else out + y
     return out if chain is None else out + chain
+
+
+def edge_branch(p: Params, pre: str, mask: tuple, x: torch.Tensor,
+                prec: Optional[str] = None) -> torch.Tensor:
+    """ECB's SeqConv3x3 edge branch ``pre`` on ``x``: the 1x1 conv, its
+    output framed by a one-pixel border of ``b0``, and the depthwise conv of
+    ``scale * mask`` with ``bias`` over it (VALID, so the size is kept)."""
+    b0 = p[f"{pre}.b0"]
+    y = F.pad(F.conv2d(rounded(x, prec), rounded(p[f"{pre}.k0"], prec), b0), (1, 1, 1, 1))
+    border = torch.ones(y.shape[2:], dtype=torch.bool, device=y.device)
+    border[1:-1, 1:-1] = False
+    y = torch.where(border, b0[None, :, None, None], y)
+    w = p[f"{pre}.scale"] * torch.tensor(mask, dtype=y.dtype, device=y.device)
+    return F.conv2d(rounded(y, prec), rounded(w, prec), p[f"{pre}.bias"], groups=w.shape[0])
 
 
 def head(p: Params, m: dict, x: torch.Tensor, prec: Optional[str] = None) -> torch.Tensor:
@@ -213,30 +292,53 @@ def forward(p: Params, m: dict, t: torch.Tensor, prec: Optional[str] = None) -> 
 
 def deploy_fold(p: Params, m: dict) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Each block's branches as one 3x3 conv (weight [O, I, 3, 3], bias
-    [O]), summed in float64 and rounded to f32 once: a 3x1 or 1x3 kernel is a
-    3x3 one with zero columns or rows, and the bias-free 1x1 -> 3x3 -> 1x1
-    chain contracts over its inner channels."""
-    folded = []
+    [O]), summed in float64 in ``branches``' order and rounded to f32 once.
+    A kh x kw conv is a 3x3 one with zero rows and columns; a bias-free
+    chain is its kernels contracted over the inner channels
+    (``_contract``); the average branch, a 3x3 mean counting the padding
+    after a bias-free 1x1 conv W, is W / 9 on every tap; an edge branch is
+    the kernel ``k0 * scale * mask`` and the bias
+    ``b0 * sum(scale * mask) + bias`` (``b0``'s border makes the map
+    ``k0 x + b0`` everywhere).  Every mask sums to 0, so ``b0`` adds nothing
+    and its gradient is zero by algebra: round-off alone moves it under
+    Adam, and the check's ``TINY_GRAD`` rule leaves it out of the change."""
+    folded, dev = [], p["stem.0.weight"].device
     for i, (cin, new, s) in enumerate(dims(m)["blocks"]):
-        def w(name):
-            return p[f"layers.{i}.{name}.weight"].double()
-
-        def b(name):
-            return p[f"layers.{i}.{name}.bias"].double()
-
-        if m["branch_type"] == "NeRV_vanilla":
-            k, bias = w("branch"), b("branch")
-        else:
-            k = w("rbr_3x3_branch").clone()
-            k[:, :, :, 1:2] += w("rbr_3x1_branch")
-            k[:, :, 1:2, :] += w("rbr_1x3_branch")
-            w1 = w("rbr_1x1_3x3_1x1_branch_1x1_1")[:, :, 0, 0]  # [2I, I]
-            w2 = w("rbr_1x1_3x3_1x1_branch_3x3")  # [O, 2I, 3, 3]
-            w3 = w("rbr_1x1_3x3_1x1_branch_1x1_2")[:, :, 0, 0]  # [O, O]
-            k += torch.einsum("po,omuv,mi->piuv", w3, w2, w1)
-            bias = b("rbr_3x3_branch") + b("rbr_3x1_branch") + b("rbr_1x3_branch")
+        def t(name):
+            return p[f"layers.{i}.{name}"].double()
+        o = new * s * s
+        k = torch.zeros(o, cin, 3, 3, dtype=torch.float64, device=dev)
+        bias = torch.zeros(o, dtype=torch.float64, device=dev)
+        chain = []
+        for name, br in branches(m["branch_type"], cin, o).items():
+            if br.kind == "chain":
+                chain.append(t(f"{name}.weight"))
+                continue
+            if chain:  # the chain ended at the conv before
+                k, chain = k + _contract(chain), []
+            if br.kind == "edge":
+                scaled = t(f"{name}.scale") * torch.tensor(br.mask, dtype=k.dtype, device=k.device)
+                k = k + t(f"{name}.k0") * scaled  # [O, I, 1, 1] * [O, 1, 3, 3]
+                bias = bias + t(f"{name}.b0") * scaled.sum(dim=(1, 2, 3)) + t(f"{name}.bias")
+            elif br.kind == "avg":
+                k = k + t(f"{name}.weight") / 9.0
+            else:
+                r, c = 1 - br.kh // 2, 1 - br.kw // 2
+                k[:, :, r:r + br.kh, c:c + br.kw] += t(f"{name}.weight")
+                bias = bias + t(f"{name}.bias")
+        if chain:
+            k = k + _contract(chain)
         folded.append((k.float(), bias.float()))
     return folded
+
+
+def _contract(ws: List[torch.Tensor]) -> torch.Tensor:
+    """A bias-free chain, a 1x1 conv, a 3x3 and for ERB another 1x1, as one
+    3x3 kernel."""
+    w1, w2 = ws[0][:, :, 0, 0], ws[1]  # [M, I], [O, M, 3, 3]
+    if len(ws) == 2:
+        return torch.einsum("omuv,mi->oiuv", w2, w1)
+    return torch.einsum("po,omuv,mi->piuv", ws[2][:, :, 0, 0], w2, w1)
 
 
 def deploy_forward(p: Params, m: dict, folded, t: torch.Tensor, prec: Optional[str] = None,
